@@ -1,0 +1,26 @@
+"""gear_tpu_torch: the PyTorch/CUDA port of gear_tpu for NVIDIA Hopper.
+
+The GEAR recipe (group-wise KV quantization, per-channel keys / per-token
+values, plus low-rank error bases) over a two-tier compressed cache, with
+hand-written CUDA kernels for the prefill pack and the fused decode
+attention. It imports torch and numpy, never JAX and nothing of gear_tpu.
+"""
+from .config import CompressionConfig, LayerCompressionConfig  # noqa: F401
+
+
+def __getattr__(name):
+    # lazy top-level API, as in gear_tpu
+    import importlib
+
+    lazy = {
+        "GearLM": ("gear_tpu_torch.api", "GearLM"),
+        "InferenceEngine": ("gear_tpu_torch.engine", "InferenceEngine"),
+        "EngineConfig": ("gear_tpu_torch.engine", "EngineConfig"),
+        "CacheSpec": ("gear_tpu_torch.cache", "CacheSpec"),
+        "LayerCache": ("gear_tpu_torch.cache", "LayerCache"),
+        "ModelConfig": ("gear_tpu_torch.models.llama", "ModelConfig"),
+    }
+    if name in lazy:
+        mod, attr = lazy[name]
+        return getattr(importlib.import_module(mod), attr)
+    raise AttributeError(f"module 'gear_tpu_torch' has no attribute {name!r}")

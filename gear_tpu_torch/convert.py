@@ -1,0 +1,41 @@
+"""Carry weights and cache state across from the JAX package, as numpy.
+
+Both functions take numpy arrays only (``np.asarray`` of the JAX leaves), so
+the port never imports JAX. bfloat16 arrays (numpy's ``ml_dtypes`` bfloat16)
+are carried bit for bit.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .cache import LENGTH_FIELDS, TENSOR_FIELDS, LayerCache
+
+
+def _tensor(a, device) -> torch.Tensor:
+    a = np.array(a)  # a writable, contiguous copy
+    if a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(device=device)
+
+
+def params_from_numpy(tree: dict, *, device="cpu") -> dict:
+    """The JAX parameter pytree as numpy (layers stacked on a leading axis,
+    ``gear_tpu.models.llama.init_params`` layout) -> the port's params."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = params_from_numpy(v, device=device)
+        else:
+            out[k] = _tensor(v, device)
+    return out
+
+
+def cache_from_numpy(fields: dict, *, device="cpu") -> LayerCache:
+    """A dict of ``gear_tpu.cache.LayerCache`` fields as numpy (one layer, or
+    stacked layers) -> the port's LayerCache. Lengths become host ints."""
+    return LayerCache(
+        **{f: _tensor(fields[f], device) for f in TENSOR_FIELDS},
+        **{f: int(np.asarray(fields[f]).reshape(-1)[0]) for f in LENGTH_FIELDS})

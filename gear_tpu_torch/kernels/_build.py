@@ -1,0 +1,112 @@
+"""Build the port's CUDA kernels and bind them with ctypes.
+
+The sources under ``gear_tpu_torch/csrc/`` have a plain C interface. At first
+use they are compiled for Hopper (``sm_90a``), one ``nvcc`` process per
+source, all started together, and linked into one shared library under
+``gear_tpu_torch/_build/`` (listed in ``.gitignore``). The library's name
+carries a hash of the sources, so an edited source is rebuilt. Nothing here
+runs at import time: the CPU tests import every module on a machine with no
+``nvcc``.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+PKG = Path(__file__).resolve().parent.parent
+CSRC = PKG / "csrc"
+BUILD_DIR = PKG / "_build"
+SOURCES = ("pack.cu", "decode.cu")
+NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_I64 = ctypes.c_int64
+
+# argtypes of every C entry point (pointers and the stream as c_void_p, so
+# ctypes never truncates them to 32 bits).
+SIGNATURES = {
+    "gear_quant_pack_tokens": [_P, _P, _P, _P, _I64, _I, _I, _I, _P],
+    "gear_quant_pack_channels": [_P, _P, _P, _P, _I64, _I, _I, _I, _P],
+    "gear_decode_attention": [_P] * 17 + [_I] * 14 + [_P],
+}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = os.path.join(home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError("nvcc not found (PATH or $CUDA_HOME/bin): the CUDA "
+                       "kernels of gear_tpu_torch are built on first use")
+
+
+def _source_tag() -> str:
+    h = hashlib.sha256()
+    for name in SOURCES:
+        h.update((CSRC / name).read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def build() -> tuple[Path, str]:
+    """Compile (if needed) -> (path of the shared library, compiler log)."""
+    so = BUILD_DIR / f"libgear_kernels_{_source_tag()}.so"
+    if so.exists():
+        return so, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = nvcc_path()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        procs = []
+        for name in SOURCES:
+            obj = Path(tmp) / (name + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(CSRC / name), "-o", str(obj)]
+            procs.append((name, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        logs, failed = [], []
+        for name, _, proc in procs:
+            out, _ = proc.communicate()
+            logs.append(f"== {name}\n{out}")
+            if proc.returncode != 0:
+                failed.append(name)
+        log = "\n".join(logs)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+        tmp_so = Path(tmp) / so.name
+        link = subprocess.run(
+            [nvcc, "-shared", "-o", str(tmp_so),
+             *[str(obj) for _, obj, _ in procs]],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        os.replace(tmp_so, so)  # atomic: concurrent builders never see half a file
+    return so, log
+
+
+@functools.lru_cache(maxsize=None)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    so, _ = build()
+    lib = ctypes.CDLL(str(so))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a C launcher returned a CUDA error code."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err}")

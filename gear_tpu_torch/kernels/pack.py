@@ -1,0 +1,103 @@
+"""Fused group min/max + quantize + byte-strided bit-pack (CUDA, sm_90a).
+
+Port of ``gear_tpu/kernels/pack.py``: the Pallas ``_token_kernel`` and
+``_channel_kernel`` become ``csrc/pack.cu``. Two entry points matching the
+cache layouts (``gear_tpu_torch.cache``):
+
+  * :func:`quant_pack_tokens`   — V: groups of ``v_group`` channels along the
+    head dim (per-token scales), codes packed along the head dim.
+  * :func:`quant_pack_channels` — K: groups of ``group`` tokens along time
+    (per-channel scales), codes still packed along the head dim.
+
+A tensor on the CPU goes through the plain PyTorch version beside each
+kernel (``*_plain``); a CUDA tensor launches the kernel, or the wrapper
+raises. Each wrapper counts its kernel launches in ``<wrapper>.launches``.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..core import quant
+from . import _build
+
+
+def quant_pack_tokens_plain(x: torch.Tensor, *, bits: int, v_group: int):
+    """x [..., D] -> (words int32 [..., D*bits//32], scale f32 [..., D//v_group], mn)."""
+    codes, scale, mn = quant.quantize_groups(x, bits, v_group)
+    return quant.pack_codes_bytestrided(codes, bits), scale, mn
+
+
+def quant_pack_channels_plain(x: torch.Tensor, *, bits: int, group: int):
+    """x [..., S, D] -> (words int32 [..., S//group, group, D*bits//32],
+    scale f32 [..., S//group, 1, D], mn)."""
+    *lead, s, d = x.shape
+    xg = x.float().reshape(*lead, s // group, group, d)
+    # per-channel groups along time == quantize_groups on the [D, G] view
+    codes, scale, mn = quant.quantize_groups(xg.transpose(-1, -2), bits, group)
+    words = quant.pack_codes_bytestrided(codes.transpose(-1, -2), bits)
+    return words, scale.transpose(-1, -2), mn.transpose(-1, -2)
+
+
+def _check_common(x: torch.Tensor, bits: int) -> None:
+    if x.dtype != torch.float32:
+        raise TypeError(f"expected float32 input, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("input must be contiguous")
+    if bits not in (2, 4, 8):
+        raise ValueError("bits must be one of 2, 4, 8")
+    if x.shape[-1] % (32 // bits):
+        raise ValueError(f"head dim {x.shape[-1]} not a multiple of {32 // bits}")
+
+
+def quant_pack_tokens(x: torch.Tensor, *, bits: int, v_group: int):
+    """V-layout pack; see :func:`quant_pack_tokens_plain` for shapes."""
+    if x.device.type == "cpu":
+        return quant_pack_tokens_plain(x, bits=bits, v_group=v_group)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    _check_common(x, bits)
+    *lead, d = x.shape
+    if d % v_group:
+        raise ValueError(f"head dim {d} not a multiple of v_group {v_group}")
+    m = x.numel() // d
+    words = torch.empty((*lead, d * bits // 32), dtype=torch.int32, device=x.device)
+    scale = torch.empty((*lead, d // v_group), dtype=torch.float32, device=x.device)
+    mn = torch.empty_like(scale)
+    lib = _build.library()
+    err = lib.gear_quant_pack_tokens(
+        x.data_ptr(), words.data_ptr(), scale.data_ptr(), mn.data_ptr(),
+        m, d, bits, v_group, torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "gear_quant_pack_tokens")
+    quant_pack_tokens.launches += 1
+    return words, scale, mn
+
+
+def quant_pack_channels(x: torch.Tensor, *, bits: int, group: int):
+    """K-layout pack; see :func:`quant_pack_channels_plain` for shapes."""
+    if x.device.type == "cpu":
+        return quant_pack_channels_plain(x, bits=bits, group=group)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    _check_common(x, bits)
+    *lead, s, d = x.shape
+    if s % group:
+        raise ValueError(f"length {s} not a multiple of group {group}")
+    if 4 * (group * d + 2 * d) > 227 * 1024:
+        raise ValueError(f"group {group} x head dim {d} exceeds shared memory")
+    nblk = x.numel() // (group * d)
+    words = torch.empty((*lead, s // group, group, d * bits // 32),
+                        dtype=torch.int32, device=x.device)
+    scale = torch.empty((*lead, s // group, 1, d), dtype=torch.float32,
+                        device=x.device)
+    mn = torch.empty_like(scale)
+    lib = _build.library()
+    err = lib.gear_quant_pack_channels(
+        x.data_ptr(), words.data_ptr(), scale.data_ptr(), mn.data_ptr(),
+        nblk, group, d, bits, torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "gear_quant_pack_channels")
+    quant_pack_channels.launches += 1
+    return words, scale, mn
+
+
+quant_pack_tokens.launches = 0
+quant_pack_channels.launches = 0
