@@ -1,9 +1,11 @@
 """gear_tpu_torch: the PyTorch/CUDA port of gear_tpu for NVIDIA Hopper.
 
 The GEAR recipe (group-wise KV quantization, per-channel keys / per-token
-values, plus low-rank error bases) over a two-tier compressed cache, with
-hand-written CUDA kernels for the prefill pack and the fused decode
-attention. It imports torch and numpy, never JAX and nothing of gear_tpu.
+values, sparse outliers, low-rank error bases) over a two-tier compressed
+cache, for Llama and Mistral models, with hand-written CUDA kernels for the
+prefill pack, the fused decode attention over the compressed cache and the
+flash decode over the raw bf16 cache. It imports torch and numpy, never JAX
+and nothing of gear_tpu.
 """
 from .config import CompressionConfig, LayerCompressionConfig  # noqa: F401
 

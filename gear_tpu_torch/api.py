@@ -6,7 +6,7 @@ PyTorch port of ``gear_tpu/api.py``::
 
     lm = GearLM.from_pretrained(
         "/path/to/llama-checkpoint",
-        CompressionConfig(compress_method="GEARL", quantize_bit=4, rank=2,
+        CompressionConfig(compress_method="GEAR", quantize_bit=4, rank=2,
                           prefill_rank=4, num_layers=32),
         max_len=4096, batch_size=8)            # runs on the CUDA device
     out_ids = lm.generate(prompt_ids, max_new_tokens=256)

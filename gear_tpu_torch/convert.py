@@ -1,8 +1,10 @@
 """Carry weights and cache state across from the JAX package, as numpy.
 
-Both functions take numpy arrays only (``np.asarray`` of the JAX leaves), so
-the port never imports JAX. bfloat16 arrays (numpy's ``ml_dtypes`` bfloat16)
-are carried bit for bit.
+Everything here speaks numpy only (``np.asarray`` of the JAX leaves one
+way, arrays to wrap with ``jnp.asarray`` the other), so the port never
+imports JAX. bfloat16 arrays (numpy's ``ml_dtypes`` bfloat16) are carried
+bit for bit. With :func:`cache_from_numpy` and :func:`cache_to_numpy` a
+cache built by either package can be handed to the other's ``attend``.
 """
 from __future__ import annotations
 
@@ -39,3 +41,21 @@ def cache_from_numpy(fields: dict, *, device="cpu") -> LayerCache:
     return LayerCache(
         **{f: _tensor(fields[f], device) for f in TENSOR_FIELDS},
         **{f: int(np.asarray(fields[f]).reshape(-1)[0]) for f in LENGTH_FIELDS})
+
+
+def _array(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes  # numpy's bfloat16; not part of JAX
+
+        return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
+
+
+def cache_to_numpy(cache: LayerCache) -> dict:
+    """The port's LayerCache (one layer, or stacked) -> a dict of numpy
+    arrays with the field names and shapes of ``gear_tpu.cache.LayerCache``;
+    lengths become int32 scalars."""
+    out = {f: _array(getattr(cache, f)) for f in TENSOR_FIELDS}
+    out.update({f: np.int32(getattr(cache, f)) for f in LENGTH_FIELDS})
+    return out

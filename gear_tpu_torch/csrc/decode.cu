@@ -1,17 +1,24 @@
-// Flash decode over the two-tier GEARL compressed KV cache, for Hopper (sm_90a).
+// Flash decode over the two-tier GEAR compressed KV cache, for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel gear_tpu/kernels/decode.py::_decode_kernel
-// (reached through decode_attention / attend_fused) for GEARL caches:
-// byte-strided 2/4/8-bit codes, per-(block, channel) K scales, per-(token,
-// d-group) V scales, bf16 low-rank error bases, the bf16 residual tier, and
-// the comp_len / resid_len / pad_start masks. It computes what
-// gear_tpu_torch/cache.py::attend computes. COO outliers, int8 bases and the
-// sliding window are not handled here (the wrapper refuses such caches).
+// (reached through decode_attention / attend_fused), its whole contract:
+// byte-strided 2/4/8-bit codes, per-(block, channel) K scales (per block or,
+// for a KCVT prefill, one scale replicated over the prefill's block rows: the
+// kernel reads either the same way), per-(token, d-group) V scales, low-rank
+// error bases in bf16 or as int8 codes with f32 scales per (block, rank),
+// sorted COO outlier deltas with their boundary tables, the bf16 residual
+// tier, and the comp_len / resid_len / pad_start masks (the wrapper folds a
+// sliding window into pad_start). It computes what
+// gear_tpu_torch/cache.py::attend computes.
 //
 // Bound on the card: bytes. Per decode step a layer's compressed cache is
-// read once (codes at bits/16 of the bf16 cache, plus sidebands and bases),
-// while the arithmetic is a few multiply-adds per stored element, far below
-// the H100's ~295 operations per byte.
+// read once: codes at bits/16 of the bf16 cache, sidebands, bases (half the
+// bytes as int8, plus their scales), and per quant block and tensor the
+// outlier entries (4 bytes each: 16-bit index + bf16 delta) and a 512-byte
+// boundary table. At Llama/Mistral shapes (group 64, D 128, int4, 256 stored
+// entries) the outliers add 3 KB to a block's 9.5 KB. The arithmetic is a few
+// multiply-adds per stored element, far below the H100's ~295 operations per
+// byte.
 //
 // Design (a simple kernel that is right first):
 //  * grid (BH rows, 1 + token splits). Split 0 attends the residual tier;
@@ -20,106 +27,93 @@
 //    sum, acc) states, flash-decoding style. The wrapper picks enough
 //    splits for many blocks per SM, which hides the load latency.
 //  * K scores: per quant block the scale folds into q once
-//    (qs = q * scale), and q.mn and q.P_blk are reduced once; each thread then
-//    unpacks its token's code words straight from device memory (consecutive
-//    tokens are consecutive addresses in the [D/fpi, T] layout) and adds
+//    (qs = q * scale), and q.mn and q.P_blk are reduced once (int8 bases:
+//    times both scales there); each thread then unpacks its token's code
+//    words straight from device memory (consecutive tokens are consecutive
+//    addresses in the [D/fpi, T] layout) and adds
 //    qs.code + q.mn + (q.P_blk).Q[:, t].
 //  * PV: the tile's V code words, V scales and Q columns are staged in
 //    shared memory; p * vscale is formed per token, and sum p * vmn and
 //    sum p * Q[:, t] per block are reduced once, so one thread per channel
 //    accumulates (p * vscale) * code per token plus a few per-tile terms.
+//  * Outliers: the TPU kernel's one-hot dots and running-sum gathers stand
+//    in for a scatter it does not have. Here the entries of the tile's
+//    blocks are staged in shared memory; K entries are sorted by token, so
+//    the thread of token t walks its own segment bnd[t-1]+1 .. bnd[t] and
+//    adds q[d] * delta to its scores; V entries are sorted by channel, so
+//    the PV thread of channel d walks its segment and adds p[t] * delta.
+//    No atomics, a fixed order. The padding entries up to the stored count
+//    (idx 0, delta 0) are the last out_pad entries of token 0's / channel
+//    0's segment (the stable sort keeps them behind that key's real
+//    entries); those two threads stop before them.
 //  * float32 throughout; online softmax with -inf for masked tokens.
 // Faster forms (wgmma products, TMA staging, reading the shared prefill P
-// once) are later work.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+// once, one score product over a KCVT prefill region) are later work.
+//
+// Built once per code width, -DGEAR_DECODE_BITS=2, 4 and 8, into three
+// objects that compile side by side; each exports
+// gear_decode_attention_b<bits>.
+#include "attn_common.cuh"
+
+#ifndef GEAR_DECODE_BITS
+#error "compile with -DGEAR_DECODE_BITS=2, 4 or 8 (one object per code width)"
+#endif
+#define GEAR_CAT_(a, b) a##b
+#define GEAR_CAT(a, b) GEAR_CAT_(a, b)
 
 namespace {
-
-constexpr int kTile = 128;  // tokens per tile == threads per block
-constexpr int kWarps = kTile / 32;
-typedef __nv_bfloat16 bf16;
 
 struct Params {
   const float* q;          // [BH, GQ, D], sm_scale folded in
   const int32_t* k_codes;  // [BH, D/fpi, T]
   const bf16* k_scale;     // [BH, NB, D]
   const bf16* k_mn;        // [BH, NB, D]
-  const bf16* kpt;         // [BH, NB, R, D]
-  const bf16* kqt;         // [BH, R, T]
+  const void* kpt;         // [BH, NB, R, D] bf16 or int8
+  const void* kqt;         // [BH, R, T]
   const int32_t* v_codes;  // [BH, D/fpi, T]
   const bf16* v_scale;     // [BH, NGV, T]
   const bf16* v_mn;        // [BH, NGV, T]
-  const bf16* vpt;         // [BH, NB, R, D]
-  const bf16* vqt;         // [BH, R, T]
+  const void* vpt;         // [BH, NB, R, D]
+  const void* vqt;         // [BH, R, T]
   const bf16* k_resid;     // [BH, G, D]
   const bf16* v_resid;     // [BH, G, D]
   const int32_t* pad_start;  // [B]
+  const float* kpt_scale;  // [BH, NB, R] (int8 bases only)
+  const float* kqt_scale;  // [BH, R, NB]
+  const float* vpt_scale;  // [BH, NB, R]
+  const float* vqt_scale;  // [BH, R, NB]
+  const int32_t* k_out_idx;  // [BH, NB, KO/2]: entry j low, j + KO/2 high
+  const bf16* k_out_val;     // [BH, NB, KO] deltas, sorted by token
+  const int32_t* k_out_bnd;  // [BH, NB, 128]
+  const int32_t* v_out_idx;
+  const bf16* v_out_val;     // sorted by channel
+  const int32_t* v_out_bnd;
   float* part_acc;         // [BH, NS, GQ, D]
   float* part_ml;          // [BH, NS, GQ, 2]
-  int hkv, d, t, nb, r, group, v_group;
+  int hkv, d, t, nb, r, group, v_group, ko;
+  int out_pad;  // padding entries at the end of segment 0 of every block
   int comp_len, resid_len, n_split, tiles_per_split;
 };
 
-__device__ __forceinline__ float ld(const bf16* p) {
-  return __bfloat162float(*p);
+constexpr int kBnd = 128;  // lanes of an outlier boundary table
+
+// One element of a low-rank base: bf16, or an int8 code (scaled by the caller).
+template <bool BASE8>
+__device__ __forceinline__ float ldb(const void* p, size_t i) {
+  if constexpr (BASE8)
+    return static_cast<float>(static_cast<const int8_t*>(p)[i]);
+  else
+    return __bfloat162float(static_cast<const bf16*>(p)[i]);
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// Online-softmax update over one tile: thread `tid` holds its token's
-// scores s[GQ]. Writes p into p_s [GQ][kTile] and rescales the running
-// (m, l); alpha is the factor the caller applies to its accumulators.
-template <int GQ>
-__device__ __forceinline__ void softmax_tile(const float* s, bool valid,
-                                             float* p_s, float* red_max,
-                                             float* red_sum, float* m_run,
-                                             float* l_run, float* alpha) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-#pragma unroll
-  for (int g = 0; g < GQ; ++g) {
-    const float v = warp_max(valid ? s[g] : -INFINITY);
-    if (lane == 0) red_max[g * kWarps + warp] = v;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int g = 0; g < GQ; ++g) {
-    float tmax = -INFINITY;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) tmax = fmaxf(tmax, red_max[g * kWarps + w]);
-    const float m_new = fmaxf(m_run[g], tmax);
-    alpha[g] = m_new == -INFINITY ? 1.0f : expf(m_run[g] - m_new);
-    const float pv = valid ? expf(s[g] - m_new) : 0.0f;
-    p_s[g * kTile + tid] = pv;
-    const float ps = warp_sum(pv);
-    if (lane == 0) red_sum[g * kWarps + warp] = ps;
-    m_run[g] = m_new;
-  }
-  __syncthreads();
-#pragma unroll
-  for (int g = 0; g < GQ; ++g) {
-    float tsum = 0.0f;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) tsum += red_sum[g * kWarps + w];
-    l_run[g] = l_run[g] * alpha[g] + tsum;
-  }
+// Entry e of a block's packed outlier indices (KO/2 words in shared memory).
+__device__ __forceinline__ int out_idx(const int32_t* words, int e, int koh) {
+  const uint32_t w = static_cast<uint32_t>(words[e < koh ? e : e - koh]);
+  return static_cast<int>(e < koh ? (w & 0xFFFFu) : (w >> 16));
 }
 
 size_t split_smem_bytes(int gq, int d, int bits, int r, int group,
-                        int v_group) {
+                        int v_group, int ko) {
   const int nbt = kTile / group;
   const int ngv = d / v_group;
   const int wd = d * bits / 32;
@@ -137,10 +131,12 @@ size_t split_smem_bytes(int gq, int d, int bits, int r, int group,
   floats += gq * ngv;               // pvm_s
   floats += gq * nbt * r;           // wv_s
   floats += wd * (kTile + 1);       // vw_s (int32)
+  // per block of the tile and per tensor: KO/2 index words, KO deltas, table
+  if (ko) floats += 2 * nbt * (ko / 2 + ko + kBnd);
   return floats * sizeof(float);
 }
 
-template <int BITS, int GQ>
+template <int BITS, int GQ, bool BASE8>
 __global__ void __launch_bounds__(kTile) decode_split_kernel(Params p) {
   extern __shared__ float smem[];
   constexpr int VPB = 8 / BITS;
@@ -148,6 +144,7 @@ __global__ void __launch_bounds__(kTile) decode_split_kernel(Params p) {
   const int bh = blockIdx.x, split = blockIdx.y, tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const int D = p.d, T = p.t, R = p.r, G = p.group, NB = p.nb;
+  const int KO = p.ko, KOH = p.ko / 2;
   const int WD = D * BITS / 32;
   const int NGV = D / p.v_group;
   const int NBT = kTile / G;
@@ -169,6 +166,14 @@ __global__ void __launch_bounds__(kTile) decode_split_kernel(Params p) {
   float* pvm_s = pvs_s + GQ * NGV * kTile;
   float* wv_s = pvm_s + GQ * NGV;
   int32_t* vw_s = reinterpret_cast<int32_t*>(wv_s + GQ * NBT * R);
+  // outlier tiles (KO > 0): [NBT][KO/2] index words, [NBT][KO] deltas,
+  // [NBT][kBnd] boundary tables, for K and for V
+  int32_t* koi_s = vw_s + WD * VWS;
+  int32_t* voi_s = koi_s + NBT * KOH;
+  float* kov_s = reinterpret_cast<float*>(voi_s + NBT * KOH);
+  float* vov_s = kov_s + NBT * KO;
+  int32_t* kob_s = reinterpret_cast<int32_t*>(vov_s + NBT * KO);
+  int32_t* vob_s = kob_s + NBT * kBnd;
 
   for (int i = tid; i < GQ * D; i += kTile)
     q_s[i] = p.q[static_cast<size_t>(bh) * GQ * D + i];
@@ -223,12 +228,18 @@ __global__ void __launch_bounds__(kTile) decode_split_kernel(Params p) {
         const int g = rem / (1 + R), which = rem % (1 + R);
         const int blk = blk0 + j;
         float acc_d = 0.0f;
-        if (blk < NB) {
-          const bf16* src =
-              which == 0 ? p.k_mn + (bh_nb + blk) * D
-                         : p.kpt + ((bh_nb + blk) * R + (which - 1)) * D;
+        if (blk < NB && which == 0) {
+          const bf16* src = p.k_mn + (bh_nb + blk) * D;
 #pragma unroll 4
           for (int dd = lane; dd < D; dd += 32) acc_d += q_s[g * D + dd] * ld(src + dd);
+        } else if (blk < NB) {
+          const size_t row = ((bh_nb + blk) * R + (which - 1)) * D;
+#pragma unroll 4
+          for (int dd = lane; dd < D; dd += 32)
+            acc_d += q_s[g * D + dd] * ldb<BASE8>(p.kpt, row + dd);
+          if constexpr (BASE8)  // both int8 scales of (block, rank) fold in here
+            acc_d *= p.kpt_scale[(bh_nb + blk) * R + which - 1] *
+                     p.kqt_scale[(static_cast<size_t>(bh) * R + which - 1) * NB + blk];
         }
         acc_d = warp_sum(acc_d);
         if (lane == 0) {
@@ -254,15 +265,48 @@ __global__ void __launch_bounds__(kTile) decode_split_kernel(Params p) {
 #pragma unroll 4
       for (int i = tid; i < R * kTile; i += kTile) {
         const int rr = i / kTile, tt = i % kTile;
-        vq_s[i] = tt < n_valid
-                      ? ld(p.vqt + (static_cast<size_t>(bh) * R + rr) * T + t0 + tt)
-                      : 0.0f;
+        float vq = 0.0f;
+        if (tt < n_valid) {
+          vq = ldb<BASE8>(p.vqt, (static_cast<size_t>(bh) * R + rr) * T + t0 + tt);
+          if constexpr (BASE8)
+            vq *= p.vqt_scale[(static_cast<size_t>(bh) * R + rr) * NB + blk0 + tt / G];
+        }
+        vq_s[i] = vq;
       }
 #pragma unroll 4
       for (int i = tid; i < NBT * R * D; i += kTile) {
         const int j = i / (R * D), rem = i % (R * D);
         const int blk = blk0 + j;
-        vp_s[i] = blk < NB ? ld(p.vpt + (bh_nb + blk) * R * D + rem) : 0.0f;
+        float vp = 0.0f;
+        if (blk < NB) {
+          vp = ldb<BASE8>(p.vpt, (bh_nb + blk) * R * D + rem);
+          if constexpr (BASE8) vp *= p.vpt_scale[(bh_nb + blk) * R + rem / D];
+        }
+        vp_s[i] = vp;
+      }
+      // Stage the outlier entries of the tile's live blocks.
+      if (KO) {
+        for (int i = tid; i < NBT * KOH; i += kTile) {
+          const int j = i / KOH, blk = blk0 + j;
+          const bool live = blk * G < p.comp_len;
+          const size_t off = (bh_nb + blk) * KOH + i % KOH;
+          koi_s[i] = live ? p.k_out_idx[off] : 0;
+          voi_s[i] = live ? p.v_out_idx[off] : 0;
+        }
+        for (int i = tid; i < NBT * KO; i += kTile) {
+          const int j = i / KO, blk = blk0 + j;
+          const bool live = blk * G < p.comp_len;
+          const size_t off = (bh_nb + blk) * KO + i % KO;
+          kov_s[i] = live ? ld(p.k_out_val + off) : 0.0f;
+          vov_s[i] = live ? ld(p.v_out_val + off) : 0.0f;
+        }
+        for (int i = tid; i < NBT * kBnd; i += kTile) {
+          const int j = i / kBnd, blk = blk0 + j;
+          const bool live = blk * G < p.comp_len;
+          const size_t off = (bh_nb + blk) * kBnd + i % kBnd;
+          kob_s[i] = live ? p.k_out_bnd[off] : -1;  // -1: empty segments
+          vob_s[i] = live ? p.v_out_bnd[off] : -1;
+        }
       }
       __syncthreads();
 
@@ -301,9 +345,21 @@ __global__ void __launch_bounds__(kTile) decode_split_kernel(Params p) {
 #pragma unroll
         for (int g = 0; g < GQ; ++g) s[g] += qm_s[j * GQ + g];
         for (int rr = 0; rr < R; ++rr) {
-          const float kq = ld(p.kqt + (static_cast<size_t>(bh) * R + rr) * T + t);
+          const float kq = ldb<BASE8>(p.kqt, (static_cast<size_t>(bh) * R + rr) * T + t);
 #pragma unroll
           for (int g = 0; g < GQ; ++g) s[g] += qp_s[(j * GQ + g) * R + rr] * kq;
+        }
+        if (KO) {  // this token's outlier segment: q[d] * delta
+          const int tl = tid - j * G;
+          const int lo = tl ? kob_s[j * kBnd + tl - 1] + 1 : 0;
+          const int hi =
+              min(kob_s[j * kBnd + tl], KO - 1) - (tl ? 0 : p.out_pad);
+          for (int e = max(lo, 0); e <= hi; ++e) {
+            const int dd = out_idx(koi_s + j * KOH, e, KOH) % D;
+            const float delta = kov_s[j * KO + e];
+#pragma unroll
+            for (int g = 0; g < GQ; ++g) s[g] += q_s[g * D + dd] * delta;
+          }
         }
       }
       softmax_tile<GQ>(s, valid, p_s, red_max, red_sum, m_run, l_run, alpha);
@@ -353,6 +409,20 @@ __global__ void __launch_bounds__(kTile) decode_split_kernel(Params p) {
           for (int g = 0; g < GQ; ++g)
             acc[g] += pvs_s[(g * NGV + grp_me) * kTile + tt] * code;
         }
+        if (KO) {  // this channel's outlier segments: p[t] * delta
+          for (int j = 0; j < NBT; ++j) {
+            const int lo = tid ? vob_s[j * kBnd + tid - 1] + 1 : 0;
+            const int hi =
+                min(vob_s[j * kBnd + tid], KO - 1) - (tid ? 0 : p.out_pad);
+            for (int e = max(lo, 0); e <= hi; ++e) {
+              const int tl = min(out_idx(voi_s + j * KOH, e, KOH) / D, G - 1);
+              const float delta = vov_s[j * KO + e];
+#pragma unroll
+              for (int g = 0; g < GQ; ++g)
+                acc[g] += p_s[g * kTile + j * G + tl] * delta;
+            }
+          }
+        }
       }
     }
   } else {
@@ -392,97 +462,84 @@ __global__ void __launch_bounds__(kTile) decode_split_kernel(Params p) {
     }
   }
 
-  const size_t slot = static_cast<size_t>(bh) * NS + split;
-  if (tid == 0) {
-#pragma unroll
-    for (int g = 0; g < GQ; ++g) {
-      p.part_ml[(slot * GQ + g) * 2] = m_run[g];
-      p.part_ml[(slot * GQ + g) * 2 + 1] = l_run[g];
-    }
-  }
-  if (has_d) {
-#pragma unroll
-    for (int g = 0; g < GQ; ++g) p.part_acc[(slot * GQ + g) * D + tid] = acc[g];
-  }
+  store_partial<GQ>(p.part_acc, p.part_ml,
+                    static_cast<size_t>(bh) * NS + split, D, has_d, m_run,
+                    l_run, acc);
 }
 
-// Merge the splits' (m, l, acc) states: out = sum acc_i e^{m_i - M} /
-// sum l_i e^{m_i - M}. grid (BH, GQ), one thread per channel.
-__global__ void decode_merge_kernel(const float* __restrict__ part_acc,
-                                    const float* __restrict__ part_ml,
-                                    float* __restrict__ out, int ns, int gq,
-                                    int d) {
-  const int bh = blockIdx.x, g = blockIdx.y;
-  float m_tot = -INFINITY;
-  for (int i = 0; i < ns; ++i)
-    m_tot = fmaxf(m_tot, part_ml[((static_cast<size_t>(bh) * ns + i) * gq + g) * 2]);
-  for (int dd = threadIdx.x; dd < d; dd += blockDim.x) {
-    float num = 0.0f, den = 0.0f;
-    if (m_tot != -INFINITY) {
-      for (int i = 0; i < ns; ++i) {
-        const size_t slot = (static_cast<size_t>(bh) * ns + i) * gq + g;
-        const float w = expf(part_ml[slot * 2] - m_tot);
-        num += part_acc[slot * d + dd] * w;
-        den += part_ml[slot * 2 + 1] * w;
-      }
-    }
-    out[(static_cast<size_t>(bh) * gq + g) * d + dd] = den > 0.0f ? num / den : 0.0f;
-  }
-}
-
-template <int BITS, int GQ>
+template <int BITS, int GQ, bool BASE8>
 cudaError_t launch_split(const Params& p, int bh, size_t smem,
                          cudaStream_t stream) {
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        decode_split_kernel<BITS, GQ>,
+        decode_split_kernel<BITS, GQ, BASE8>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
   dim3 grid(bh, p.n_split + 1);
-  decode_split_kernel<BITS, GQ><<<grid, kTile, smem, stream>>>(p);
+  decode_split_kernel<BITS, GQ, BASE8><<<grid, kTile, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <int BITS>
-cudaError_t launch_bits(const Params& p, int bh, int gq, size_t smem,
-                        cudaStream_t stream) {
+template <int BITS, bool BASE8>
+cudaError_t launch_gq(const Params& p, int bh, int gq, size_t smem,
+                      cudaStream_t stream) {
   switch (gq) {
-    case 1: return launch_split<BITS, 1>(p, bh, smem, stream);
-    case 2: return launch_split<BITS, 2>(p, bh, smem, stream);
-    case 4: return launch_split<BITS, 4>(p, bh, smem, stream);
-    case 8: return launch_split<BITS, 8>(p, bh, smem, stream);
+    case 1: return launch_split<BITS, 1, BASE8>(p, bh, smem, stream);
+    case 2: return launch_split<BITS, 2, BASE8>(p, bh, smem, stream);
+    case 4: return launch_split<BITS, 4, BASE8>(p, bh, smem, stream);
+    case 8: return launch_split<BITS, 8, BASE8>(p, bh, smem, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-extern "C" int gear_decode_attention(
+extern "C" int GEAR_CAT(gear_decode_attention_b, GEAR_DECODE_BITS)(
     const float* q, const int32_t* k_codes, const void* k_scale,
     const void* k_mn, const void* kpt, const void* kqt, const int32_t* v_codes,
     const void* v_scale, const void* v_mn, const void* vpt, const void* vqt,
     const void* k_resid, const void* v_resid, const int32_t* pad_start,
-    float* part_acc, float* part_ml, float* out, int bh, int hkv, int gq,
-    int d, int t, int nb, int r, int group, int v_group, int bits,
-    int comp_len, int resid_len, int n_split, int tiles_per_split,
-    cudaStream_t stream) {
-  if (kTile % group != 0 || d > kTile || group > kTile) return cudaErrorInvalidValue;
+    const float* kpt_scale, const float* kqt_scale, const float* vpt_scale,
+    const float* vqt_scale, const int32_t* k_out_idx, const void* k_out_val,
+    const int32_t* k_out_bnd, const int32_t* v_out_idx, const void* v_out_val,
+    const int32_t* v_out_bnd, float* part_acc, float* part_ml, float* out,
+    int bh, int hkv, int gq, int d, int t, int nb, int r, int group,
+    int v_group, int base8, int ko, int out_pad, int comp_len, int resid_len,
+    int n_split, int tiles_per_split, cudaStream_t stream) {
+  if (kTile % group != 0 || d > kTile || group > kTile || ko % 2 != 0 ||
+      out_pad < 0 || out_pad > ko)
+    return cudaErrorInvalidValue;
+  if (base8 && !(kpt_scale && kqt_scale && vpt_scale && vqt_scale))
+    return cudaErrorInvalidValue;
+  if (ko && !(k_out_idx && k_out_val && k_out_bnd && v_out_idx && v_out_val &&
+              v_out_bnd))
+    return cudaErrorInvalidValue;
   Params p;
   p.q = q;
   p.k_codes = k_codes;
   p.k_scale = static_cast<const bf16*>(k_scale);
   p.k_mn = static_cast<const bf16*>(k_mn);
-  p.kpt = static_cast<const bf16*>(kpt);
-  p.kqt = static_cast<const bf16*>(kqt);
+  p.kpt = kpt;
+  p.kqt = kqt;
   p.v_codes = v_codes;
   p.v_scale = static_cast<const bf16*>(v_scale);
   p.v_mn = static_cast<const bf16*>(v_mn);
-  p.vpt = static_cast<const bf16*>(vpt);
-  p.vqt = static_cast<const bf16*>(vqt);
+  p.vpt = vpt;
+  p.vqt = vqt;
   p.k_resid = static_cast<const bf16*>(k_resid);
   p.v_resid = static_cast<const bf16*>(v_resid);
   p.pad_start = pad_start;
+  p.kpt_scale = kpt_scale;
+  p.kqt_scale = kqt_scale;
+  p.vpt_scale = vpt_scale;
+  p.vqt_scale = vqt_scale;
+  p.k_out_idx = k_out_idx;
+  p.k_out_val = static_cast<const bf16*>(k_out_val);
+  p.k_out_bnd = k_out_bnd;
+  p.v_out_idx = v_out_idx;
+  p.v_out_val = static_cast<const bf16*>(v_out_val);
+  p.v_out_bnd = v_out_bnd;
   p.part_acc = part_acc;
   p.part_ml = part_ml;
   p.hkv = hkv;
@@ -492,21 +549,20 @@ extern "C" int gear_decode_attention(
   p.r = r;
   p.group = group;
   p.v_group = v_group;
+  p.ko = ko;
+  p.out_pad = out_pad;
   p.comp_len = comp_len;
   p.resid_len = resid_len;
   p.n_split = n_split;
   p.tiles_per_split = tiles_per_split;
-  const size_t smem = split_smem_bytes(gq, d, bits, r, group, v_group);
-  cudaError_t e;
-  switch (bits) {
-    case 2: e = launch_bits<2>(p, bh, gq, smem, stream); break;
-    case 4: e = launch_bits<4>(p, bh, gq, smem, stream); break;
-    case 8: e = launch_bits<8>(p, bh, gq, smem, stream); break;
-    default: e = cudaErrorInvalidValue;
-  }
+  constexpr int kBits = GEAR_DECODE_BITS;
+  const size_t smem = split_smem_bytes(gq, d, kBits, r, group, v_group, ko);
+  const cudaError_t e =
+      base8 ? launch_gq<kBits, true>(p, bh, gq, smem, stream)
+            : launch_gq<kBits, false>(p, bh, gq, smem, stream);
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid(bh, gq);
-  decode_merge_kernel<<<grid, d, 0, stream>>>(part_acc, part_ml, out,
-                                              n_split + 1, gq, d);
+  attn_merge_kernel<<<grid, d, 0, stream>>>(part_acc, part_ml, out,
+                                            n_split + 1, gq, d);
   return static_cast<int>(cudaGetLastError());
 }

@@ -8,10 +8,12 @@ between steps; the host syncs only every ``sync_every`` steps to check for
 end-of-sequence, and once at the end.
 
 Modes:
-  * ``fused`` — two-tier compressed cache (the speed + memory path).
+  * ``fused`` — two-tier compressed cache (the speed + memory path), for
+    every method of ``config.METHODS`` and for sliding-window models.
   * ``raw``   — uncompressed bf16 cache (the baseline fused mode is
-    compared with).
-Other modes of the JAX engine raise ``NotImplementedError``.
+    compared with), attended by the flash-decode kernel on the card.
+The JAX engine's other modes (``simulated``, ``h2o``, ``sink``) raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -34,6 +36,7 @@ class EngineConfig:
     pad_token_id: int = 0
     temperature: float = 0.0       # 0 = greedy
     sync_every: int = 16           # host<->device sync cadence for early exit
+    use_lowrank: bool = True       # False: leave the error bases zero
 
 
 class InferenceEngine:
@@ -63,6 +66,15 @@ class InferenceEngine:
         lcomp = self.comp.layer(0)
         if engine_cfg.max_len % lcomp.group_size:
             raise ValueError("max_len must be a multiple of group_size")
+        win = model_cfg.sliding_window
+        if win is not None and win < lcomp.group_size:
+            # attend_fused would raise the same only mid-generation: the
+            # residual tier (up to group_size of the newest tokens) must fit
+            # inside the attention window
+            raise ValueError(
+                f"sliding_window {win} < group_size {lcomp.group_size}: "
+                "the compressed cache masks the window over the packed "
+                "prefix only; use group_size <= sliding_window")
         self.spec = model_cfg.cache_spec(batch_size, engine_cfg.max_len, lcomp)
 
     # -- bucketing ------------------------------------------------------
@@ -95,7 +107,8 @@ class InferenceEngine:
         positions = torch.clamp(torch.cumsum(mask, dim=1) - 1, min=0)
         return llama.forward_prefill(
             self.params, self.cfg, tokens, positions, mask, self.spec,
-            compress=self.ecfg.mode == "fused", init=init, generator=generator)
+            compress=self.ecfg.mode == "fused", init=init,
+            generator=generator, use_lowrank=self.ecfg.use_lowrank)
 
     def decode_step(self, caches, token, position, pad_start, *, step: int = 0,
                     init=None, generator: torch.Generator | None = None):
@@ -103,7 +116,8 @@ class InferenceEngine:
         logits, caches = llama.forward_decode(
             self.params, self.cfg, token, position, caches, spec=self.spec,
             compress=self.ecfg.mode == "fused", pad_start=pad_start,
-            init=init, generator=generator, step=step)
+            init=init, generator=generator, step=step,
+            use_lowrank=self.ecfg.use_lowrank)
         return self._pick(logits, generator), logits, caches
 
     def _pick(self, logits: torch.Tensor, generator) -> torch.Tensor:

@@ -1,20 +1,22 @@
 """Hand-written CUDA kernels (csrc/) with their plain PyTorch versions."""
 
 
-def launch_counts() -> dict[str, int]:
-    """Launches of every kernel wrapper since the last reset."""
-    from . import decode, pack
+def _wrappers() -> dict:
+    from . import decode, flash, pack
 
     return {
-        "decode_attention": decode.decode_attention.launches,
-        "quant_pack_channels": pack.quant_pack_channels.launches,
-        "quant_pack_tokens": pack.quant_pack_tokens.launches,
+        "decode_attention": decode.decode_attention,
+        "flash_decode": flash.flash_decode,
+        "quant_pack_channels": pack.quant_pack_channels,
+        "quant_pack_tokens": pack.quant_pack_tokens,
     }
 
 
-def reset_launch_counts() -> None:
-    from . import decode, pack
+def launch_counts() -> dict[str, int]:
+    """Launches of every kernel wrapper since the last reset."""
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
-    decode.decode_attention.launches = 0
-    pack.quant_pack_channels.launches = 0
-    pack.quant_pack_tokens.launches = 0
+
+def reset_launch_counts() -> None:
+    for fn in _wrappers().values():
+        fn.launches = 0

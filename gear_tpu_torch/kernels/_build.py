@@ -2,8 +2,9 @@
 
 The sources under ``gear_tpu_torch/csrc/`` have a plain C interface. At first
 use they are compiled for Hopper (``sm_90a``), one ``nvcc`` process per
-source, all started together, and linked into one shared library under
-``gear_tpu_torch/_build/`` (listed in ``.gitignore``). The library's name
+unit (a source, or ``decode.cu`` once per code width), all started together,
+and linked into one shared library under ``gear_tpu_torch/_build/`` (listed
+in ``.gitignore``). The library's name
 carries a hash of the sources, so an edited source is rebuilt. Nothing here
 runs at import time: the CPU tests import every module on a machine with no
 ``nvcc``.
@@ -22,7 +23,13 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
-SOURCES = ("pack.cu", "decode.cu")
+DECODE_BITS = (2, 4, 8)
+# (source, extra flags, object name): decode.cu holds 8 instantiations per
+# code width and takes the longest, so each width is a unit of its own
+UNITS = (("pack.cu", (), "pack.o"), ("flash.cu", (), "flash.o")) + tuple(
+    ("decode.cu", (f"-DGEAR_DECODE_BITS={b}",), f"decode_b{b}.o")
+    for b in DECODE_BITS)
+FILES = ("pack.cu", "decode.cu", "flash.cu", "attn_common.cuh")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -35,7 +42,9 @@ _I64 = ctypes.c_int64
 SIGNATURES = {
     "gear_quant_pack_tokens": [_P, _P, _P, _P, _I64, _I, _I, _I, _P],
     "gear_quant_pack_channels": [_P, _P, _P, _P, _I64, _I, _I, _I, _P],
-    "gear_decode_attention": [_P] * 17 + [_I] * 14 + [_P],
+    **{f"gear_decode_attention_b{b}": [_P] * 27 + [_I] * 16 + [_P]
+       for b in DECODE_BITS},
+    "gear_flash_decode": [_P] * 7 + [_I] * 7 + [_P],
 }
 
 
@@ -53,7 +62,7 @@ def nvcc_path() -> str:
 
 def _source_tag() -> str:
     h = hashlib.sha256()
-    for name in SOURCES:
+    for name in FILES:
         h.update((CSRC / name).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return h.hexdigest()[:16]
@@ -68,9 +77,10 @@ def build() -> tuple[Path, str]:
     nvcc = nvcc_path()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         procs = []
-        for name in SOURCES:
-            obj = Path(tmp) / (name + ".o")
-            cmd = [nvcc, *NVCC_FLAGS, "-c", str(CSRC / name), "-o", str(obj)]
+        for src, flags, obj_name in UNITS:
+            name, obj = obj_name[:-2], Path(tmp) / obj_name
+            cmd = [nvcc, *NVCC_FLAGS, *flags, "-c", str(CSRC / src), "-o",
+                   str(obj)]
             procs.append((name, obj, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))

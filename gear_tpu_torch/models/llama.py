@@ -6,9 +6,11 @@
     the JAX package's layout (``x @ W`` weights).
   * The layer loop is a Python loop (``lax.scan`` in JAX).
   * Weights stay in the model dtype; attention and quant math run in fp32.
-  * Decode appends to the compressed cache in place, then attends through
-    ``kernels.decode.attend_fused``: the CUDA decode kernel for tensors on
-    the card, the plain ``cache.attend`` on the CPU.
+  * Decode appends to the cache in place, then attends through
+    ``kernels.decode.attend_fused`` (compressed cache) or
+    ``kernels.flash.raw_attend_flash`` (raw bf16 cache): the CUDA kernels
+    for tensors on the card, the plain ``cache.attend`` / :func:`raw_attend`
+    on the CPU.
   * HF conventions: rotate-half RoPE, GQA head grouping, RMSNorm, SwiGLU.
 
 The power-iteration inits can be injected with ``init(site, shape)``;
@@ -29,6 +31,7 @@ from .. import cache as kvcache
 from ..cache import CacheSpec
 from ..device import resolve_device
 from ..kernels import decode as fused
+from ..kernels import flash
 
 InitFn = Callable[[tuple, tuple], torch.Tensor]
 
@@ -99,8 +102,11 @@ class ModelConfig:
 
     def cache_spec(self, batch: int, max_len: int, comp) -> CacheSpec:
         """CacheSpec for this model from a LayerCompressionConfig."""
-        # GEAR methods carry outliers (`left` fraction of entries exact);
-        # GEARL/KIVI/KCVT do not. CacheSpec refuses what is not ported yet.
+        # In fused mode the method acts through two switches only, as in
+        # the reference: names that start with GEAR but not GEARL carry
+        # outliers (the `left` fraction of entries kept exact), names that
+        # end in KCVT take whole-span K scales at prefill. (So OUTLIER, for
+        # one, carries no outliers here.)
         ko = 0
         if comp.compress_method.startswith("GEAR") and \
                 not comp.compress_method.startswith("GEARL"):
@@ -290,7 +296,8 @@ def forward_prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                     positions: torch.Tensor, attn_mask: torch.Tensor,
                     spec: CacheSpec | None, *, compress: bool = True,
                     init: InitFn | None = None,
-                    generator: torch.Generator | None = None):
+                    generator: torch.Generator | None = None,
+                    use_lowrank: bool = True):
     """Run the prompt, return (logits [B,S,V] f32, caches).
 
     With ``spec`` and ``compress``, each layer's KV is compressed into a
@@ -313,7 +320,8 @@ def forward_prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             p0 = None if init is None else (
                 lambda which, shape, i=i: init(("prefill", i, which), shape))
             caches.append(kvcache.prefill(spec, k, v, p0=p0,
-                                          generator=generator))
+                                          generator=generator,
+                                          use_lowrank=use_lowrank))
         else:
             caches.append(raw_prefill(spec, k, v))
     h = rmsnorm(h, params["final_norm"], cfg.rms_eps)
@@ -332,7 +340,8 @@ def forward_decode(params: dict, cfg: ModelConfig, token: torch.Tensor,
                    compress: bool = True,
                    pad_start: torch.Tensor | None = None,
                    init: InitFn | None = None,
-                   generator: torch.Generator | None = None, step: int = 0):
+                   generator: torch.Generator | None = None, step: int = 0,
+                   use_lowrank: bool = True):
     """One decode step: append KV (in place), attend over the whole cache.
 
     token/position [B]; ``caches`` is the stacked cache from
@@ -350,13 +359,14 @@ def forward_decode(params: dict, cfg: ModelConfig, token: torch.Tensor,
             p0 = None if init is None else (
                 lambda which, shape, i=i, c=lc.comp_len:
                 init(("decode", step, i, which, c), shape))
-            kvcache.append(spec, lc, k, v, p0=p0, generator=generator)
+            kvcache.append(spec, lc, k, v, p0=p0, generator=generator,
+                           use_lowrank=use_lowrank)
             attn = fused.attend_fused(spec, lc, q, pad_start=pad_start,
                                       window=cfg.sliding_window)
         else:
             raw_append(spec, lc, k, v)
-            attn = raw_attend(spec, lc, q, pad_start=pad_start,
-                              window=cfg.sliding_window)
+            attn = flash.raw_attend_flash(spec, lc, q, pad_start=pad_start,
+                                          window=cfg.sliding_window)
         h = _finish_layer(cfg, lp, h, attn)
     caches.set_lengths(lc)
     h = rmsnorm(h, params["final_norm"], cfg.rms_eps)
@@ -421,6 +431,9 @@ def raw_attend(spec: CacheSpec, c: RawLayerCache, q: torch.Tensor, *,
                sm_scale: float | None = None,
                pad_start: torch.Tensor | None = None,
                window: int | None = None) -> torch.Tensor:
+    """Decode attention of q [B,Hq,Qn,D] over the raw cache in float32: the
+    plain version of the flash-decode kernel (``kernels.flash``) and the CPU
+    path. Tokens ``max(pad_start, length - window) <= t < length`` count."""
     b, hq, qn, d = q.shape
     hkv = spec.num_kv_heads
     gq = hq // hkv

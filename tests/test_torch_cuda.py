@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 Marked ``cuda``: every test skips without a CUDA device (decided inside the
-fixture, so all workers collect the same tests). Run on the H100 with
-``python -m pytest tests/test_torch_cuda.py -q -n 0``.
+fixture, so all workers collect the same tests). Run on the H100, where
+there is no JAX for ``tests/conftest.py`` to import, with
+``python -m pytest -c /dev/null --noconftest --rootdir . tests/test_torch_cuda.py -q``.
 """
 import pytest
 import torch
@@ -12,8 +13,9 @@ from gear_tpu_torch import kernels
 from gear_tpu_torch.config import CompressionConfig
 from gear_tpu_torch.engine import EngineConfig, InferenceEngine
 from gear_tpu_torch.kernels import decode as TK
+from gear_tpu_torch.kernels import flash as TF
 from gear_tpu_torch.kernels import pack as TP
-from gear_tpu_torch.models import llama
+from gear_tpu_torch.models import llama, mistral
 
 pytestmark = pytest.mark.cuda
 
@@ -80,3 +82,128 @@ def test_fused_engine_launches_kernels(cuda):
     assert counts["decode_attention"] == cfg.num_layers * 19
     assert counts["quant_pack_tokens"] == cfg.num_layers
     assert counts["quant_pack_channels"] == cfg.num_layers
+
+
+GEAR_CASES = {
+    # name: (spec kwargs, kv heads, q heads, pad_start, window)
+    "outliers_int4": (dict(outliers_per_block=162), 4, 4, None, None),
+    "outliers_int2_pad": (dict(outliers_per_block=162, bits=2), 4, 4,
+                          [0, 100], None),
+    "base8": (dict(base_bits=8), 4, 4, [37, 0], None),
+    "all_three": (dict(outliers_per_block=162, base_bits=8,
+                       kcvt_prefill=True), 2, 8, None, None),
+    "window_cuts_prefix": (dict(), 4, 4, [0, 290], 200),
+    "gqa_outliers_window": (dict(outliers_per_block=162), 2, 8, [5, 0], 150),
+    "ranks_zero": (dict(outliers_per_block=162, rank=0, prefill_rank=0), 4, 4,
+                   None, None),
+    "group32_d64": (dict(outliers_per_block=40, group=32, head_dim=64), 4, 8,
+                    [0, 33], 100),
+}
+
+
+@pytest.mark.parametrize("name", list(GEAR_CASES))
+def test_decode_kernel_full_recipe_matches_plain(cuda, name):
+    kw, hkv, hq, pad, window = GEAR_CASES[name]
+    kw = dict(kw)
+    d = kw.pop("head_dim", 128)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    spec = TC.CacheSpec(batch=2, num_kv_heads=hkv, head_dim=d, max_len=512,
+                        **{"bits": 4, "group": 64, **kw})
+    shape = (2, hkv, 300, d)
+    k = torch.randn(shape, generator=gen, device=cuda).bfloat16()
+    v = torch.randn(shape, generator=gen, device=cuda).bfloat16()
+    cache = TC.prefill(spec, k, v, generator=gen)
+    for _ in range(30):  # crosses a flush, leaves a partly filled residual
+        kn = torch.randn((2, hkv, 1, d), generator=gen, device=cuda)
+        TC.append(spec, cache, kn, kn * 0.5, generator=gen)
+    q = torch.randn((2, hq, 1, d), generator=gen, device=cuda)
+    pad_t = None if pad is None else torch.tensor(pad, dtype=torch.int32,
+                                                   device=cuda)
+    before = TK.decode_attention.launches
+    got = TK.attend_fused(spec, cache, q, pad_start=pad_t, window=window)
+    assert TK.decode_attention.launches == before + 1
+    want = TC.attend(spec, cache, q, pad_start=pad_t, window=window)
+    # both in float32 over the same stored state; only sum orders differ
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-4)
+    if spec.outliers_per_block:  # the deltas matter: without them it fails
+        bare = TC.LayerCache(**{**{f: getattr(cache, f)
+                                   for f in TC.TENSOR_FIELDS},
+                                "k_out_val": torch.zeros_like(cache.k_out_val),
+                                "v_out_val": torch.zeros_like(cache.v_out_val)},
+                             comp_len=cache.comp_len,
+                             resid_len=cache.resid_len)
+        off = TK.attend_fused(spec, bare, q, pad_start=pad_t, window=window)
+        assert not torch.allclose(off, want, rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.parametrize("hkv,hq,length,pad,window", [
+    (4, 4, 300, None, None), (2, 8, 512, [0, 130], None),
+    (4, 4, 131, [130, 5], None), (2, 4, 400, [3, 9], 150),
+    (1, 8, 77, None, 64),
+])
+def test_flash_kernel_matches_plain(cuda, hkv, hq, length, pad, window):
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    spec = TC.CacheSpec(batch=2, num_kv_heads=hkv, head_dim=128, max_len=512)
+    k = torch.randn((2, hkv, 512, 128), generator=gen, device=cuda).bfloat16()
+    v = torch.randn((2, hkv, 512, 128), generator=gen, device=cuda).bfloat16()
+    c = llama.RawLayerCache(k=k, v=v, length=length)
+    q = torch.randn((2, hq, 1, 128), generator=gen, device=cuda)
+    pad_t = None if pad is None else torch.tensor(pad, dtype=torch.int32,
+                                                   device=cuda)
+    before = TF.flash_decode.launches
+    got = TF.raw_attend_flash(spec, c, q, pad_start=pad_t, window=window)
+    assert TF.flash_decode.launches == before + 1
+    want = llama.raw_attend(spec, c, q, pad_start=pad_t, window=window)
+    # both in float32 over the same bf16 cache; only sum orders differ
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.parametrize("mode", ["fused", "raw"])
+def test_mistral_gear_engine_launches_kernels(cuda, mode):
+    cfg = mistral.tiny(head_dim=32, hidden_size=128, num_heads=4)
+    params = llama.init_params(cfg, device=cuda)
+    comp = CompressionConfig(num_layers=cfg.num_layers,
+                             compress_method="GEAR", quantize_bit=4,
+                             group_size=16, rank=2, prefill_rank=4, loop=2,
+                             left=0.05)
+    eng = InferenceEngine(cfg, params, comp,
+                          EngineConfig(max_len=96, mode=mode), batch_size=2)
+    kernels.reset_launch_counts()
+    out = eng.generate([list(range(1, 23)), [3, 7]], 30)
+    counts = kernels.launch_counts()
+    assert [len(o) for o in out] == [30, 30]
+    fused = mode == "fused"
+    assert counts["decode_attention"] == (cfg.num_layers * 29 if fused else 0)
+    assert counts["flash_decode"] == (0 if fused else cfg.num_layers * 29)
+    assert counts["quant_pack_tokens"] == (cfg.num_layers if fused else 0)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(outliers_per_block=162), dict(outliers_per_block=162, base_bits=8,
+                                       kcvt_prefill=True)],
+    ids=["gear", "gear_base8_kcvt"])
+def test_gear_prefill_on_the_card_matches_the_cpu(cuda, kw):
+    """Prefill through the pack kernels and the delta recomputation on the
+    card against the plain route on the CPU, same input and inits."""
+    spec = TC.CacheSpec(batch=2, num_kv_heads=2, head_dim=128, max_len=256,
+                        bits=4, group=64, lowrank_loop=2, **kw)
+    gen = torch.Generator().manual_seed(5)
+    k = torch.randn((2, 2, 200, 128), generator=gen).bfloat16()
+    v = torch.randn((2, 2, 200, 128), generator=gen).bfloat16()
+
+    def p0(which, shape):
+        return torch.rand(shape, generator=torch.Generator().manual_seed(
+            len(which) + shape[-1]))
+
+    cpu = TC.prefill(spec, k, v, p0=p0)
+    before = TP.quant_pack_tokens.launches
+    card = TC.prefill(spec, k.to(cuda), v.to(cuda), p0=p0)
+    assert TP.quant_pack_tokens.launches == before + 1
+    for f in ("k_out_idx", "v_out_idx", "k_out_bnd", "v_out_bnd", "k_scale",
+              "k_mn", "v_scale", "v_mn", "k_resid", "v_resid"):
+        assert torch.equal(getattr(card, f).cpu(), getattr(cpu, f)), f
+    # codes at outlier positions hold the block mean, summed in another
+    # order on the card; restored values agree to one bf16 rounding of a
+    # delta (|delta| < 8: 2**-6), bases to float32 sums in another order
+    for a, b in zip(TC.dequantize_kv(spec, card), TC.dequantize_kv(spec, cpu)):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=2 ** -6)

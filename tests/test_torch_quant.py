@@ -122,5 +122,19 @@ def test_power_iterate_matches_reference(rng):
 @pytest.mark.parametrize("kw", [dict(outliers_per_block=32),
                                 dict(base_bits=8), dict(kcvt_prefill=True)])
 def test_unported_cache_options_raise(kw):
-    with pytest.raises(NotImplementedError):
-        TC.CacheSpec(batch=1, num_kv_heads=1, head_dim=128, max_len=128, **kw)
+    """Outliers, int8 bases and KCVT scales build, as in the
+    reference. What is still unported raises: the engine modes other than
+    fused and raw."""
+    from gear_tpu_torch.engine import EngineConfig, InferenceEngine
+    from gear_tpu_torch.models import llama
+
+    spec = TC.CacheSpec(batch=1, num_kv_heads=1, head_dim=128, max_len=128,
+                        **kw)
+    cache = TC.prefill(spec, torch.ones(1, 1, 70, 128), torch.ones(1, 1, 70, 128))
+    assert (cache.comp_len, cache.resid_len) == (64, 6)
+    cfg = llama.ModelConfig.tiny()
+    params = llama.init_params(cfg, device="cpu")
+    for mode in ("simulated", "h2o", "sink"):
+        with pytest.raises(NotImplementedError):
+            InferenceEngine(cfg, params, None, EngineConfig(mode=mode),
+                            device="cpu")
