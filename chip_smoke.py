@@ -7,10 +7,10 @@ Phases, each printing lines of its own:
   1. the card (nvidia-smi name and power limit) and the kernels' build time;
   2. the pack kernels against their plain versions (D=128, group 64, v_group
      64) at B=4, H=32, S=2048 with bits 2/4/8 and, at int4, at the shapes
-     the two end-to-end prefills below give them (Llama-2-7B: 128 rows of
-     1024 bf16 tokens; Mistral-7B: 16 rows of 4352 tokens, outliers
-     replaced by the block mean): words, scales and minima must be
-     bit-equal;
+     the end-to-end prefills below give them (Llama-2-7B: 128 rows of 1024
+     bf16 tokens; Mistral-7B: 16 rows of 4352 tokens, outliers replaced by
+     the block mean; a serving admission: 32 rows of 3008 tokens, cleaned
+     likewise): words, scales and minima must be bit-equal;
   3. the decode kernel against the plain ``cache.attend`` on full-width
      caches built by the port's own prefill + append across a flush: GEARL
      (bits 2/4/8, GQA 32/8 heads, left padding, a sliding window that cuts
@@ -33,7 +33,25 @@ Phases, each printing lines of its own:
      kernels, raw mode through the flash kernel;
   6. a small model in fused mode (GEARL, then GEAR), decoding in lockstep on
      the card (kernels) and on the CPU (plain path) from one prefill: the
-     logits must agree.
+     logits must agree;
+  7. the paged decode kernel against the plain ``paged.attend_gathered`` on
+     pools built by the port's own ``prefill_paged`` + ``append_paged``
+     across a flush: rows of different lengths on page ids out of order and
+     interleaved between rows, one page shared by two rows, one parked row;
+     GEARL and GEAR int4, int2, int8, int8 bases, GQA, left padding, a
+     window that cuts into one row's prefix and not another's, pages of 64
+     and of 256 tokens, and the shapes of the serving path below;
+  8. continuous-batching serving through ``PagedServingEngine`` at the full
+     width and depth of Llama-2-7B, GEAR int4, 8 slots over a pool of 96
+     pages of 256 tokens, 12 requests from a numpy seed (the first 8 prompts
+     near 3,000 tokens, so that the 8th admission waits for pages); launch
+     counts set to 0 just before and read just after; mid-run one layer's
+     paged attention is held against the plain version on the live pool and
+     both are timed there (the paged kernel's row of the kernels' record);
+  9. a small model served by ``PagedServingEngine`` on the card (kernels) and
+     on the CPU (plain path) in lockstep, with a pool small enough to force
+     a preemption: the logits must agree; then the dense ``ServingEngine``
+     on the card against the paged one.
 
 Any failed check raises, so the script exits non-zero. The second-to-last
 line is the kernels' JSON record; the last is
@@ -129,14 +147,17 @@ def cleaned_blocks(torch, x, hkv):
     return TC._extract_outliers(spec, x4)[0].reshape(n, s, d).contiguous()
 
 
-# (rows n = batch x kv heads, tokens, code widths, cleaned of outliers, the
-# suffix of the rows of the kernels' record this case fills)
+# (batch, kv heads, tokens, code widths, cleaned of outliers, the suffix of
+# the rows of the kernels' record this case fills)
 PACK_CASES = [
-    (4 * 32, 2048, (2, 4, 8), False, None),
+    (4, 32, 2048, (2, 4, 8), False, None),
     # the Llama-2-7B path's prefill: batch 4, 32 kv heads, bucket 1024
-    (4 * 32, 1024, (4,), False, ""),
+    (4, 32, 1024, (4,), False, ""),
     # the Mistral-7B path's prefill: batch 2, 8 kv heads, bucket 4352, GEAR
-    (2 * 8, 4352, (4,), True, "_gear"),
+    (2, 8, 4352, (4,), True, "_gear"),
+    # the serving path's admission prefill: one request, 32 kv heads, a
+    # prompt near 3,000 tokens in its bucket of 3008, GEAR
+    (1, 32, 3008, (4,), True, "_serving"),
 ]
 
 
@@ -145,12 +166,13 @@ def phase_pack(torch, timer, record):
 
     d, g = 128, 64
     gen = torch.Generator(device="cuda").manual_seed(1)
-    for n, s, widths, cleaned, row in PACK_CASES:
+    for batch, hkv, s, widths, cleaned, row in PACK_CASES:
+        n = batch * hkv
         x = torch.randn((n, s, d), generator=gen, device="cuda")
         if row is not None:  # the model hands over bf16 values
             x = x.bfloat16().float()
         if cleaned:
-            x = cleaned_blocks(torch, x, 8)
+            x = cleaned_blocks(torch, x, hkv)
         for bits in widths:
             wd = d * bits // 32
             for kern, plain, kw, side in (
@@ -549,6 +571,536 @@ def phase_e2e(torch, tag, cfg, method, batch, lens, n_new, max_len,
     return counts
 
 
+def build_paged(torch, gen, kw, hkv, page_blocks, prompt_lens, *, max_len,
+                n_pages, n_append=70, d=128, g=64):
+    """A pool filled by the port's own prefill_paged + append_paged across a
+    flush: rows of different lengths on page ids out of order and
+    interleaved between rows, then a row that shares row 0's first page, and
+    a parked row last."""
+    from gear_tpu_torch import cache as TC
+    from gear_tpu_torch import paged
+
+    spec = TC.CacheSpec(batch=1, num_kv_heads=hkv, head_dim=d,
+                        max_len=max_len,
+                        **{"bits": 4, "group": g, "rank": 2, "prefill_rank": 4,
+                           "lowrank_loop": 3, **kw})
+    pspec = paged.PagedSpec(spec=spec, n_pages=n_pages,
+                            page_blocks=page_blocks)
+    pt = pspec.page_tokens
+    n_rows = len(prompt_lens) + 2
+    pool = paged.init_pool(pspec, "cuda")
+    seqs = paged.init_seqs(pspec, n_rows, "cuda")
+    free = torch.randperm(n_pages, generator=torch.Generator().manual_seed(
+        n_pages)).tolist()
+    need = [-(-(s + n_append) // pt) for s in prompt_lens]
+    ids = [[] for _ in prompt_lens]
+    while any(len(i) < n for i, n in zip(ids, need)):  # dealt out in turns
+        for i, n in zip(ids, need):
+            if len(i) < n:
+                i.append(free.pop())
+    for row, s in enumerate(prompt_lens):
+        k = torch.randn((1, hkv, s, d), generator=gen,
+                        device="cuda").bfloat16()
+        v = torch.randn((1, hkv, s, d), generator=gen,
+                        device="cuda").bfloat16()
+        paged.prefill_paged(pspec, pool, seqs, row, ids[row], k, v,
+                            generator=gen)
+        for idx, pid in enumerate(ids[row]):  # the tail pages too
+            seqs.set_page(row, idx, pid)
+    shared, parked = n_rows - 2, n_rows - 1
+    check(prompt_lens[0] >= pt, "row 0 fills the page it shares")
+    seqs.set_table_row(shared, [ids[0][0], free.pop()])
+    seqs.set_lengths(shared, pt, 0, pt)
+    seqs.set_lengths(parked, 0, 1, 0)
+    live = [True] * (n_rows - 1) + [False]
+    for _ in range(n_append):
+        kn = torch.randn((n_rows, hkv, 1, d), generator=gen, device="cuda")
+        vn = torch.randn((n_rows, hkv, 1, d), generator=gen, device="cuda")
+        paged.append_paged(pspec, pool, seqs, kn.bfloat16(), vn.bfloat16(),
+                           generator=gen, live=live)
+    return pspec, pool, seqs
+
+
+def paged_bound(pspec, seqs, gq, pad, window):
+    """(bytes, operations) the paged kernel must move and do for these
+    sequences: per row only the tokens the masks let through, whole quant
+    blocks of them for the per-block parts, a page shared by two rows once,
+    the prefill's P basis once per row, the residual tier, the table row and
+    the lengths."""
+    spec = pspec.spec
+    g, d, r, hkv = spec.group, spec.head_dim, spec.r_store, spec.num_kv_heads
+    ko, bel = spec.ko_store, (1 if spec.base_bits == 8 else 2)
+    pb = pspec.page_blocks
+    seen = set()
+    nbytes = ops = 0
+    for row in range(seqs.batch):
+        comp, resid, prefill = (int(x) for x in seqs.host_lens[row])
+        first = 0 if pad is None else pad[row]
+        if window is not None:
+            first = max(first, comp + resid - window)
+        first = min(max(first, 0), comp)
+        per_head = (2 * resid * d * 2 + 2 * gq * d * 4)   # residual, q, out
+        had_prefill_p = False
+        for blk in range(first // g, comp // g):
+            live = (blk + 1) * g - max(first, blk * g)
+            ops += hkv * gq * (live * (4 * d + 4 * r) + 4 * ko)
+            where = (int(seqs.host_table[row, blk // pb]), blk % pb)
+            if where in seen:
+                continue
+            seen.add(where)
+            per_head += (2 * spec.v_words * live * 4           # K, V codes
+                         + 2 * d * 2                           # K scale, mn
+                         + 2 * spec.v_groups_per_token * live * 2
+                         + 2 * r * live * bel)                 # kqt, vqt
+            if blk * g >= prefill or not had_prefill_p:
+                had_prefill_p = had_prefill_p or blk * g < prefill
+                per_head += 2 * r * d * bel                    # kpt, vpt
+                if spec.base_bits == 8:
+                    per_head += 4 * r * 4
+            if ko:
+                per_head += 2 * (ko * 4 + 128 * 4)
+        ops += hkv * gq * resid * 4 * d
+        nbytes += hkv * per_head + pspec.max_pages_per_seq * 4 + 12
+    return nbytes, ops
+
+
+# (name, CacheSpec kwargs, kv heads, q heads, page_blocks, pad_start, window)
+PAGED_CASES = [
+    ("gearl int4, pages of 64", dict(), 32, 32, 1, None, None),
+    ("gearl int4, pages of 256", dict(), 32, 32, 4, None, None),
+    ("gear int4, pages of 64", dict(outliers_per_block=162), 32, 32, 1, None,
+     None),
+    ("gear int4, pages of 256", dict(outliers_per_block=162), 32, 32, 4, None,
+     None),
+    ("gearl int2", dict(bits=2), 32, 32, 4, None, None),
+    ("gearl int8", dict(bits=8), 32, 32, 1, None, None),
+    ("int8 bases", dict(base_bits=8), 32, 32, 4, None, None),
+    ("gear + int8 bases", dict(outliers_per_block=162, base_bits=8), 32, 32,
+     1, None, None),
+    ("gearl gqa", dict(), 8, 32, 4, None, None),
+    ("gear gqa, pages of 64", dict(outliers_per_block=162), 8, 32, 1, None,
+     None),
+    ("gearl pad", dict(), 32, 32, 4, [0, 100, 257, 0, 0, 0], None),
+    # 1970, 770, 370 and 326 tokens: cuts into the first row's prefix only
+    ("gear window 1000", dict(outliers_per_block=162), 32, 32, 4,
+     [0, 100, 0, 0, 0, 0], 1000),
+]
+
+
+def paged_case(torch, timer, gen, name, kw, hkv, hq, pb, pad, window, *,
+               prompt_lens=(1900, 700, 300, 256), max_len=2048, n_pages=96):
+    from gear_tpu_torch import paged
+    from gear_tpu_torch.kernels import decode as TK
+
+    pspec, pool, seqs = build_paged(torch, gen, kw, hkv, pb, prompt_lens,
+                                    max_len=max_len, n_pages=n_pages)
+    spec = pspec.spec
+    b = seqs.batch
+    check(len(set(seqs.host_lens[:, 0].tolist())) >= 4
+          and (seqs.host_lens[:-1, 0] > seqs.host_lens[:-1, 2]).all(),
+          "paged rows differ in length and have flushed")
+    q = torch.randn((b, hq, 1, spec.head_dim), generator=gen, device="cuda")
+    pad_t = None if pad is None else torch.tensor(
+        pad, dtype=torch.int32, device="cuda")
+    kwargs = dict(pad_start=pad_t, window=window)
+    got = TK.attend_paged(pspec, pool, seqs, q, **kwargs)
+    want = paged.attend_gathered(pspec, pool, seqs, q, **kwargs)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    check(bool(torch.isfinite(got).all()), "paged output finite")
+    check(bool((got[-1] == 0).all()), "the parked row attends to zeros")
+    ok = torch.allclose(got, want, **TOL_DECODE)
+    ms = timer(lambda: TK.attend_paged(pspec, pool, seqs, q, **kwargs),
+               names=DECODE_KERNELS)
+    plain_ms = timer(lambda: paged.attend_gathered(pspec, pool, seqs, q,
+                                                   **kwargs), iters=3)
+    nbytes, ops = paged_bound(pspec, seqs, hq // hkv, pad, window)
+    bms, by = bound_ms(nbytes, ops)
+    log(f"paged [{name}] bits={spec.bits} hkv={hkv} hq={hq} "
+        f"page_tokens={pspec.page_tokens} pad={pad} window={window} "
+        f"rows (comp, resid, prefill)={seqs.host_lens.tolist()} "
+        f"ko_store={spec.ko_store} base_bits={spec.base_bits} "
+        f"max_abs_err={err:.3e} tol(rtol={TOL_DECODE['rtol']}, "
+        f"atol={TOL_DECODE['atol']}) {'ok' if ok else 'FAIL'} "
+        f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} bound_ms={bms:.4f} "
+        f"({by}, {nbytes} bytes)")
+    check(ok, f"paged decode kernel within tolerance [{name}]")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=None)
+
+
+def phase_paged(torch, timer, record):
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    worst = 0.0
+    for name, kw, hkv, hq, pb, pad, window in PAGED_CASES:
+        res = paged_case(torch, timer, gen, name, kw, hkv, hq, pb, pad, window)
+        worst = max(worst, res["max_abs_err"])
+    # the serving path's shapes: 8 slots (6 live rows of different ages, one
+    # sharing a page, one parked), 32 kv heads, GEAR int4, pages of 256
+    # tokens, max_len 4096
+    res = paged_case(torch, timer, gen, "gear int4, serving path shapes",
+                     dict(outliers_per_block=162), 32, 32, 4, None, None,
+                     prompt_lens=(3008, 2944, 2880, 1100, 640, 320),
+                     max_len=4096, n_pages=96)
+    # the row of the kernels' record; the serving run replaces its times
+    # with those it reads on its own live pool
+    res["max_abs_err"] = max(worst, res["max_abs_err"])
+    record["decode_attention_paged"] = res
+
+
+SERVE_N_SLOTS, SERVE_N_PAGES, SERVE_PAGE_BLOCKS, SERVE_MAX_LEN = 8, 96, 4, 4096
+
+
+def phase_serving(torch, cfg, timer, record):
+    """Continuous-batching serving through ``PagedServingEngine`` at the full
+    width and depth of one model: the main path of the paged slice. Mid-run
+    the paged kernel is held against its plain version and timed on the live
+    pool: those are its times in the kernels' record. Returns the launch
+    counts of the run."""
+    import warnings
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from gear_tpu_torch import cache as TC
+    from gear_tpu_torch import kernels, paged
+    from gear_tpu_torch.config import CompressionConfig
+    from gear_tpu_torch.kernels import decode as TK
+    from gear_tpu_torch.models import llama
+    from gear_tpu_torch.serving import PagedServingEngine
+
+    params = llama.init_params(cfg, seed=0)
+    comp = CompressionConfig(num_layers=cfg.num_layers,
+                             compress_method="GEAR", quantize_bit=4,
+                             group_size=64, rank=2, prefill_rank=4, loop=3,
+                             left=0.02)
+    eng = PagedServingEngine(cfg, params, comp, n_slots=SERVE_N_SLOTS,
+                             max_len=SERVE_MAX_LEN, n_pages=SERVE_N_PAGES,
+                             page_blocks=SERVE_PAGE_BLOCKS)
+    spec, pspec, n_l = eng.spec, eng.pspec, cfg.num_layers
+    resid_bytes = 2 * eng.seqs.k_resid.numel() * eng.seqs.k_resid.element_size()
+    pool_bytes = eng.pools.nbytes() + resid_bytes
+    one = TC.init_layer_cache(spec, device="meta")  # a dense slot's layer
+    dense_bytes = SERVE_N_SLOTS * n_l * sum(
+        getattr(one, f).numel() * getattr(one, f).element_size()
+        for f in TC.TENSOR_FIELDS)
+    rng = np.random.default_rng(0)
+    # the first 8 prompts take 12 pages each: 7 fit beside the spare page
+    # that admission asks for, the 8th waits for pages with a slot free
+    lens = np.concatenate([rng.integers(2830, 3001, 8),
+                           rng.integers(300, 1501, 4)]).tolist()
+    news = rng.integers(70, 201, 12).tolist()
+    log(f"e2e serving: Llama-2-7B hidden {cfg.hidden_size}, layers {n_l} "
+        f"(depth not cut), kv heads {cfg.num_kv_heads}, {cfg.dtype}; GEAR "
+        f"int4 group 64 rank 2 prefill rank 4 loop 3 left 0.02 "
+        f"({spec.outliers_per_block} outliers per block, {spec.ko_store} "
+        f"stored); {SERVE_N_SLOTS} slots, max_len {SERVE_MAX_LEN}, "
+        f"{SERVE_N_PAGES} pages of {pspec.page_tokens} tokens "
+        f"({SERVE_N_PAGES * pspec.page_tokens} tokens pooled, against "
+        f"{SERVE_N_SLOTS * SERVE_MAX_LEN} for dense slots); pool_bytes="
+        f"{pool_bytes} ({pool_bytes / (SERVE_N_PAGES * pspec.page_tokens):.0f}"
+        f" a token over {n_l} layers, residual tiers included) "
+        f"dense_slots_bytes={dense_bytes}; prompts {lens}, new tokens {news}")
+
+    # warm-up outside the counted run: CUDA context, cuBLAS handles
+    warm = PagedServingEngine(cfg, params, comp, n_slots=2, max_len=256,
+                              n_pages=4, page_blocks=SERVE_PAGE_BLOCKS)
+    warm.submit(list(range(1, 100)), 3)
+    warm.run()
+    del warm
+
+    stats = dict(prefill=[], splice=[], steps=[], flush_steps=[], syncs=[],
+                 waited=0, grown=0, midrun=None, device=None, sync_sites=set())
+
+    def timed(fn, into):
+        def wrapper(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            into.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return wrapper
+
+    eng._prefill = timed(eng._prefill, stats["prefill"])
+    eng._splice_slot = timed(eng._splice_slot, stats["splice"])
+    admit_all, prealloc, decode_once = (eng._admit_all, eng._prealloc_pages,
+                                        eng._decode_once)
+
+    def admit_counted():
+        admit_all()
+        if eng.sched.next_admission() != -1:  # a slot is free, pages are not
+            stats["waited"] += 1
+
+    def prealloc_counted():
+        before = eng.alloc.free_count()
+        prealloc()
+        stats["grown"] += before - eng.alloc.free_count()
+
+    def midrun_check():
+        """One layer's paged attention on the live pool, kernel vs plain,
+        both timed there: the shapes are the main path's own. The launches
+        made here are taken off the count again."""
+        layer = n_l // 2
+        lpool, lseqs = eng.pools.layer(layer), eng.seqs.layer(layer)
+        gen = torch.Generator(device="cuda").manual_seed(6)
+        q = torch.randn((SERVE_N_SLOTS, cfg.num_heads, 1, cfg.head_dim),
+                        generator=gen, device="cuda")
+        before = TK.decode_attention_paged.launches
+        got = TK.attend_paged(pspec, lpool, lseqs, q, pad_start=eng.pad_start)
+        want = paged.attend_gathered(pspec, lpool, lseqs, q,
+                                     pad_start=eng.pad_start)
+        ages = sorted(set(eng.seqs.host_lens[eng.live, 0].tolist()))
+        err = float((got - want).abs().max())
+        check(len(ages) > 1, "mid-run check: slots of different ages")
+        check(torch.allclose(got, want, **TOL_DECODE),
+              "mid-run: paged kernel equals the plain version on the live "
+              "pool")
+        ms = timer(lambda: TK.attend_paged(pspec, lpool, lseqs, q,
+                                           pad_start=eng.pad_start),
+                   names=DECODE_KERNELS)
+        plain_ms = timer(lambda: paged.attend_gathered(
+            pspec, lpool, lseqs, q, pad_start=eng.pad_start), iters=3)
+        TK.decode_attention_paged.launches = before
+        nbytes, ops = paged_bound(pspec, lseqs, cfg.num_heads
+                                  // cfg.num_kv_heads, eng.pad_start.tolist(),
+                                  None)
+        bms, by = bound_ms(nbytes, ops)
+        stats["midrun"] = (err, ages, int(eng.live.sum()),
+                           eng.seqs.host_lens.tolist(), ms, plain_ms, bms,
+                           by, nbytes)
+        record["decode_attention_paged"].update(
+            max_abs_err=max(err, record["decode_attention_paged"][
+                "max_abs_err"]),
+            ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+
+    prof_steps = range(20, 25)  # steady steps under the profiler
+
+    def decode_counted():
+        i = len(stats["steps"])
+        # a live slot whose residual tier fills in this step flushes in it
+        flushing = bool((eng.seqs.host_lens[eng.live, 1] + 1
+                         == spec.group).any())
+        if i == prof_steps[0]:
+            stats["prof"] = profile(activities=[ProfilerActivity.CUDA])
+            stats["prof"].__enter__()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                decode_once()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        stats["steps"].append((time.perf_counter() - t0) * 1e3)
+        where = [f"{Path(w.filename).name}:{w.lineno}" for w in caught
+                 if "called a synchronizing" in str(w.message)]
+        stats["syncs"].append(len(where))
+        stats["sync_sites"].update(where)
+        if flushing:
+            stats["flush_steps"].append(i)
+        if i == prof_steps[-1]:
+            prof = stats.pop("prof")
+            prof.__exit__(None, None, None)
+            rows = prof.key_averages()
+            stats["device"] = (
+                sum(e.device_time_total for e in rows) / len(prof_steps) / 1e3,
+                sum(e.count for e in rows) / len(prof_steps))
+            top = sorted(rows, key=lambda e: -e.device_time_total)[:6]
+            stats["top"] = "; ".join(
+                f"{e.key[:48]} {e.device_time_total / len(prof_steps) / 1e3:.2f}"
+                f" ms x{e.count // len(prof_steps)}" for e in top)
+        if stats["midrun"] is None and i >= 100 and len(set(
+                eng.seqs.host_lens[eng.live, 0].tolist())) > 1:
+            midrun_check()
+
+    eng._admit_all, eng._prealloc_pages, eng._decode_once = (
+        admit_counted, prealloc_counted, decode_counted)
+    rids = [eng.submit(rng.integers(1, cfg.vocab_size, n).tolist(), m)
+            for n, m in zip(lens, news)]
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = eng.run()  # the main path
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+
+    n_steps = len(stats["steps"])
+    check(set(outs) == set(rids) and all(
+        len(outs[r]) == m for r, m in zip(rids, news)),
+        "serving: every request done with exactly its max_new tokens")
+    check(all(0 <= x < cfg.vocab_size for o in outs.values() for x in o),
+          "serving: tokens in range")
+    check(eng.alloc.free_count() == SERVE_N_PAGES,
+          "serving: every page back in the pool")
+    check(counts["decode_attention_paged"] == n_l * n_steps,
+          "serving: paged kernel launched layers x decode steps")
+    n_admit = len(stats["prefill"])
+    check(counts["quant_pack_tokens"] == n_l * n_admit
+          and counts["quant_pack_channels"] == n_l * n_admit
+          and n_admit >= len(rids),
+          "serving: pack kernels ran at every admission")
+    check(counts["decode_attention"] == 0 and counts["flash_decode"] == 0,
+          "serving: no dense attention kernel on the paged path")
+    check(stats["waited"] > 0, "serving: an admission waited for pages")
+    check(stats["grown"] > 0, "serving: a slot crossed into a new page")
+    check(len(stats["flush_steps"]) > 0 and stats["midrun"] is not None,
+          "serving: slots flushed and the mid-run check ran")
+    steady = sorted(t for i, t in enumerate(stats["steps"])
+                    if i not in stats["flush_steps"] and i not in prof_steps)
+    flush = sorted(stats["steps"][i] for i in stats["flush_steps"])
+    steady_syncs = [s for i, s in enumerate(stats["syncs"])
+                    if i not in stats["flush_steps"]]
+    flush_syncs = [stats["syncs"][i] for i in stats["flush_steps"]]
+    dev_ms, dev_launches = stats["device"]
+    median = steady[len(steady) // 2]
+    by_len = sorted(zip(lens[:n_admit] if n_admit == len(lens) else
+                        [0] * n_admit, stats["prefill"], stats["splice"]))
+    (err, ages, n_live, rows, k_ms, k_plain_ms, k_bound_ms, k_by,
+     k_bytes) = stats["midrun"]
+    log(f"e2e serving: {len(rids)} requests, {sum(news)} tokens in "
+        f"{total_s:.1f} s ({sum(news) / total_s:.1f} tokens/s, admissions "
+        f"and flushes included); {n_steps} decode steps, {n_admit} "
+        f"admissions ({n_admit - len(rids)} after a preemption), "
+        f"{stats['waited']} rounds in which an admission waited for pages, "
+        f"{stats['grown']} pages allocated at decode time; "
+        f"median_step_ms={median:.2f} min_step_ms={steady[0]:.2f} (host "
+        f"clock, synchronised each, {len(steady)} steady steps) "
+        f"flush_step_ms median={flush[len(flush) // 2]:.1f} "
+        f"max={flush[-1]:.1f} ({len(flush)} steps in which a slot flushed) "
+        f"device_ms_per_step={dev_ms:.2f} "
+        f"device_launches_per_step={dev_launches:.0f} (steps "
+        f"{prof_steps[0]}-{prof_steps[-1]} under the profiler) "
+        f"device_busy_share={dev_ms / median:.3f} "
+        f"host_syncs_per_steady_step={sorted(set(steady_syncs))} "
+        f"host_syncs_per_flush_step={sorted(set(flush_syncs))}")
+    log(f"e2e serving device time per step, largest kernels: {stats['top']}")
+    log("e2e serving admissions (prompt tokens: prefill_ms / splice_ms): "
+        + ", ".join(f"{n}: {p:.1f} / {sp:.1f}" for n, p, sp in by_len))
+    log(f"e2e serving mid-run check: {n_live} live slots with comp_len "
+        f"{ages}, layer {n_l // 2}, |kernel - plain| max {err:.3e} within "
+        f"tol(rtol={TOL_DECODE['rtol']}, atol={TOL_DECODE['atol']}); rows "
+        f"(comp, resid, prefill)={rows} kernel_ms={k_ms:.4f} "
+        f"plain_ms={k_plain_ms:.4f} bound_ms={k_bound_ms:.4f} ({k_by}, "
+        f"{k_bytes} bytes); launches={counts}")
+    check(sorted(set(stats["syncs"])) == [1],
+          "serving: one host sync per decode step (the token fetch), flush "
+          f"steps included; counted {sorted(set(stats['syncs']))} at "
+          f"{sorted(stats['sync_sites'])}")
+    del eng, params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_small_serving(torch):
+    """A small bf16 model served by ``PagedServingEngine`` on the card
+    (kernels) and on the CPU (plain path) in lockstep from the same inits,
+    staggered finishes, a pool small enough to force a preemption; then the
+    dense ``ServingEngine`` on the card against the paged one."""
+    from gear_tpu_torch.config import CompressionConfig
+    from gear_tpu_torch.models import llama
+    from gear_tpu_torch.serving import PagedServingEngine, ServingEngine
+
+    cfg = llama.ModelConfig.tiny(hidden_size=256, num_heads=4, num_kv_heads=2,
+                                 head_dim=64, intermediate_size=512)
+    params = llama.init_params(cfg, seed=3)
+    cpu_params = {k: ({kk: vv.cpu() for kk, vv in v.items()}
+                      if isinstance(v, dict) else v.cpu())
+                  for k, v in params.items()}
+    comp = CompressionConfig(num_layers=cfg.num_layers,
+                             compress_method="GEAR", quantize_bit=4,
+                             group_size=16, rank=2, prefill_rank=4, loop=3,
+                             left=0.02)
+
+    def init(site, shape):  # the same power-iteration inits on both sides
+        gen = torch.Generator().manual_seed(hash(site) % (1 << 31))
+        return torch.rand(shape, generator=gen)
+
+    prompt = list(range(1, 33))
+    requests = [(prompt, 40), ([x + 50 for x in prompt], 40), ([5, 9, 2], 6),
+                ([7, 11, 3, 8], 25)]
+    kw = dict(n_slots=2, max_len=128, n_pages=6, page_blocks=1, init=init)
+    card = PagedServingEngine(cfg, params, comp, **kw)
+    cpu = PagedServingEngine(cfg, cpu_params, comp, device="cpu", **kw)
+    preempted = []
+    card_preempt = card._preempt
+    card._preempt = lambda slot: (preempted.append(slot), card_preempt(slot))
+    for eng in (card, cpu):
+        for p, n in requests:
+            eng.submit(p, n)
+    worst, n_steps = 0.0, 0
+    while True:
+        for eng in (card, cpu):
+            eng._admit_all()
+        # the CPU engine follows the card's tokens, so both stay in lockstep
+        cpu.cur_tok = card.cur_tok.cpu()
+        for rid, req in card.requests.items():
+            cpu.requests[rid].out[:] = req.out
+        check(card.live.tolist() == cpu.live.tolist(), "small serving: the "
+              "same slots live on the card and on the CPU")
+        if not card.live.any():
+            break
+        for eng in (card, cpu):
+            eng._prealloc_pages()
+        check((card.seqs.host_lens == cpu.seqs.host_lens).all()
+              and (card.seqs.host_table == cpu.seqs.host_table).all(),
+              "small serving: same lengths and tables on both")
+        live = card.live.copy()
+        logits = []
+        for eng in (card, cpu):
+            lg, _, _ = llama.forward_decode_paged(
+                eng.params, cfg, eng.cur_tok, eng.positions, eng.pools,
+                eng.seqs, pspec=eng.pspec, pad_start=eng.pad_start,
+                init=init, live=eng.live, live_dev=eng.live_dev)
+            logits.append(lg.cpu()[live])
+        scale = float(logits[1].abs().max())
+        worst = max(worst, float((logits[0] - logits[1]).abs().max()) / scale)
+        nxt = torch.zeros_like(card.cur_tok)
+        nxt[torch.from_numpy(live).cuda()] = logits[0].argmax(-1).cuda()
+        card._emit(nxt)
+        cpu._emit(nxt.cpu())
+        n_steps += 1
+    counts = [[len(r.out) for r in eng.requests.values()]
+              for eng in (card, cpu)]
+    log(f"small serving, GEAR int4, 2 slots over 6 pages of 16 tokens: card "
+        f"(kernels) vs CPU (plain path) over {n_steps} decode steps in "
+        f"lockstep, {len(preempted)} preemption(s), tokens per request "
+        f"{counts[0]}, max |logit diff| / max |logit| = {worst:.3e} (limit "
+        f"5e-2: bf16 projections round differently on the two)")
+    check(counts[0] == counts[1] == [n for _, n in requests]
+          and all(r.done for r in card.requests.values()),
+          "small serving: every request done, token counts equal")
+    check(len(preempted) >= 1, "small serving: the pool forced a preemption")
+    check(card.alloc.free_count() == 6 and cpu.alloc.free_count() == 6,
+          "small serving: every page back in the pool")
+    check(worst < 5e-2, "small serving: card and CPU logits agree")
+
+    # the dense twin on the card, and the paged engine with pages to spare
+    outs = {}
+    for name, cls, extra in (
+            ("paged", PagedServingEngine, dict(n_pages=16, page_blocks=1)),
+            ("dense", ServingEngine, {})):
+        eng = cls(cfg, params, comp, n_slots=2, max_len=128, init=init,
+                  **extra)
+        rids = [eng.submit(p, n) for p, n in requests]
+        done = eng.run()
+        outs[name] = [done[r] for r in rids]
+    same = [a == b for pa, de in zip(outs["paged"], outs["dense"])
+            for a, b in zip(pa, de)]
+    agree = sum(same) / len(same)
+    log(f"small serving: dense ServingEngine vs PagedServingEngine on the "
+        f"card, same requests, no preemption: token counts "
+        f"{[len(o) for o in outs['dense']]}, greedy agreement "
+        f"{agree:.3f} (bf16 logits near ties may part the two: the kernels "
+        f"merge their splits in different orders)")
+    check([len(o) for o in outs["dense"]] == [len(o) for o in outs["paged"]]
+          == [n for _, n in requests], "small serving: dense token counts")
+    check(agree >= 0.9, "small serving: dense and paged tokens agree")
+
+
 def phase_small(torch, method):
     """The fused model on a small input: kernels on the card against the
     plain path on the CPU, in lockstep from one prefill, across a flush."""
@@ -649,6 +1201,12 @@ def main() -> int:
             [1000, 1024, 977, 1011], 80, 1152, "depth not cut")),
         "small gearl": lambda: phase_small(torch, "GEARL"),
         "small gear": lambda: phase_small(torch, "GEAR"),
+        "paged": lambda: phase_paged(torch, timer, record),
+        # the paged slice's path: continuous batching over the page pool
+        "e2e serving": lambda: counts.update(
+            serving={"paged": phase_serving(torch, llama_cfg, timer,
+                                            record)}),
+        "small serving": lambda: phase_small_serving(torch),
     }
     for name in phases:
         t0 = time.perf_counter()
@@ -678,6 +1236,15 @@ def main() -> int:
          "mistral", "fused"),
         ("flash_decode", "flash_decode", "gear_tpu_torch/csrc/flash.cu",
          "gear_tpu/kernels/flash.py:32", "mistral", "raw"),
+        ("decode_attention_paged", "decode_attention_paged",
+         "gear_tpu_torch/csrc/decode.cu", "gear_tpu/kernels/decode.py:1163",
+         "serving", "paged"),
+        ("quant_pack_channels_serving", "quant_pack_channels",
+         "gear_tpu_torch/csrc/pack.cu", "gear_tpu/kernels/pack.py:90",
+         "serving", "paged"),
+        ("quant_pack_tokens_serving", "quant_pack_tokens",
+         "gear_tpu_torch/csrc/pack.cu", "gear_tpu/kernels/pack.py:67",
+         "serving", "paged"),
     ]
     kern = []
     for row, wrapper, src, rep, path, mode in info:

@@ -50,19 +50,45 @@
 // Faster forms (wgmma products, TMA staging, reading the shared prefill P
 // once, one score product over a KCVT prefill region) are later work.
 //
-// Built once per code width, -DGEAR_DECODE_BITS=2, 4 and 8, into three
-// objects that compile side by side; each exports
-// gear_decode_attention_b<bits>.
+//
+// The paged form (-DGEAR_DECODE_PAGED=1) replaces the TPU kernel
+// gear_tpu/kernels/decode.py::decode_attention_paged (its inner `kernel`,
+// reached through attend_paged): the same tile body read straight from the
+// physical page pool. Row bh is sequence b = bh / hkv, head h = bh % hkv;
+// quant block blk of that sequence lives in page
+// max(block_table[b][blk / PB], 0) at block offset blk % PB, so a leaf's row
+// is (page, h) and its block and token axes are a page's. The indirection is
+// per quant block, not per tile: a 128-token tile may span several pages
+// (PB * group < 128) or sit inside one; consecutive tokens of a block stay
+// consecutive addresses. comp_len and resid_len are each sequence's own,
+// read from `lens` in device memory; the grid is sized from a host bound on
+// comp_len, and a block whose tiles lie beyond its row's comp_len stores the
+// empty state (max -inf, sum 0), which the merge absorbs. A parked row
+// (comp_len 0, one zero residual token, a table of -1) attends that one
+// token and yields zeros. It computes what
+// gear_tpu_torch/paged.py::attend_gathered computes; its bound is bytes too:
+// the live blocks of every row, the residual tier, the table row.
+//
+// Built once per code width and form, -DGEAR_DECODE_BITS=2, 4 and 8 times
+// -DGEAR_DECODE_PAGED=0 and 1, into six objects that compile side by side;
+// each exports gear_decode_attention_b<bits> or
+// gear_decode_attention_paged_b<bits>.
 #include "attn_common.cuh"
 
 #ifndef GEAR_DECODE_BITS
 #error "compile with -DGEAR_DECODE_BITS=2, 4 or 8 (one object per code width)"
+#endif
+#ifndef GEAR_DECODE_PAGED
+#define GEAR_DECODE_PAGED 0
 #endif
 #define GEAR_CAT_(a, b) a##b
 #define GEAR_CAT(a, b) GEAR_CAT_(a, b)
 
 namespace {
 
+// Shapes as in the dense form; in the paged form read [P, H] for BH, a
+// page's blocks PB for NB and a page's tokens PT for T (k/v_resid stay
+// [B, H, G, D], which is [BH, G, D]).
 struct Params {
   const float* q;          // [BH, GQ, D], sm_scale folded in
   const int32_t* k_codes;  // [BH, D/fpi, T]
@@ -90,9 +116,13 @@ struct Params {
   const int32_t* v_out_bnd;
   float* part_acc;         // [BH, NS, GQ, D]
   float* part_ml;          // [BH, NS, GQ, 2]
-  int hkv, d, t, nb, r, group, v_group, ko;
+  const int32_t* lens;         // paged: [B, 3] comp, resid, prefill lengths
+  const int32_t* block_table;  // paged: [B, MAXP], entries < 0 unallocated
+  int hkv, d, t, nb, r, group, v_group, ko;  // nb: blocks of a sequence
   int out_pad;  // padding entries at the end of segment 0 of every block
-  int comp_len, resid_len, n_split, tiles_per_split;
+  int comp_len, resid_len;  // dense form (the paged form reads `lens`)
+  int n_split, tiles_per_split;
+  int maxp, pb;  // paged: table width, blocks per page
 };
 
 constexpr int kBnd = 128;  // lanes of an outlier boundary table
@@ -113,7 +143,7 @@ __device__ __forceinline__ int out_idx(const int32_t* words, int e, int koh) {
 }
 
 size_t split_smem_bytes(int gq, int d, int bits, int r, int group,
-                        int v_group, int ko) {
+                        int v_group, int ko, bool paged) {
   const int nbt = kTile / group;
   const int ngv = d / v_group;
   const int wd = d * bits / 32;
@@ -133,17 +163,35 @@ size_t split_smem_bytes(int gq, int d, int bits, int r, int group,
   floats += wd * (kTile + 1);       // vw_s (int32)
   // per block of the tile and per tensor: KO/2 index words, KO deltas, table
   if (ko) floats += 2 * nbt * (ko / 2 + ko + kBnd);
+  if (paged) floats += 2 * nbt;     // lrow_s, loff_s (int32)
   return floats * sizeof(float);
 }
 
-template <int BITS, int GQ, bool BASE8>
-__global__ void __launch_bounds__(kTile) decode_split_kernel(Params p) {
+// Blocks per SM that the register budget is held to. Without it the
+// compiler's own choice flips between 96 and 126 registers a thread (five
+// or four blocks an SM) from one small edit of this file to the next, and a
+// step up cost 17% of the kernel's time on an H100 (GEARL int4, 128 rows of
+// 1,930 tokens: 0.080 -> 0.093 ms). The loads of a tile are dependent round
+// trips to device memory, so more blocks in flight win over more registers
+// a thread.
+constexpr int min_blocks(int gq) { return gq == 1 ? 5 : gq == 4 ? 6 : 4; }
+
+template <int BITS, int GQ, bool BASE8, bool PAGED>
+__global__ void __launch_bounds__(kTile, min_blocks(GQ))
+decode_split_kernel(Params p) {
   extern __shared__ float smem[];
   constexpr int VPB = 8 / BITS;
   constexpr uint32_t MASK = (1u << BITS) - 1u;
   const int bh = blockIdx.x, split = blockIdx.y, tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
-  const int D = p.d, T = p.t, R = p.r, G = p.group, NB = p.nb;
+  const int D = p.d, R = p.r, G = p.group, NB = p.nb;
+  const int seq = bh / p.hkv;
+  // blocks and tokens of one row of a leaf: a sequence's, or a page's (the
+  // dense form reads both straight from the kernel's parameters)
+  const int NBS = PAGED ? p.pb : p.nb;
+  const int TS = PAGED ? p.pb * p.group : p.t;
+  const int comp_len = PAGED ? p.lens[seq * 3] : p.comp_len;
+  const int resid_len = PAGED ? p.lens[seq * 3 + 1] : p.resid_len;
   const int KO = p.ko, KOH = p.ko / 2;
   const int WD = D * BITS / 32;
   const int NGV = D / p.v_group;
@@ -174,6 +222,10 @@ __global__ void __launch_bounds__(kTile) decode_split_kernel(Params p) {
   float* vov_s = kov_s + NBT * KO;
   int32_t* kob_s = reinterpret_cast<int32_t*>(vov_s + NBT * KO);
   int32_t* vob_s = kob_s + NBT * kBnd;
+  // paged: leaf row (page * hkv + head) and block offset in the page of
+  // each quant block of the tile
+  int32_t* lrow_s = kob_s + (KO ? 2 * NBT * kBnd : 0);
+  int32_t* loff_s = lrow_s + NBT;
 
   for (int i = tid; i < GQ * D; i += kTile)
     q_s[i] = p.q[static_cast<size_t>(bh) * GQ * D + i];
@@ -201,26 +253,56 @@ __global__ void __launch_bounds__(kTile) decode_split_kernel(Params p) {
   // single block); splits 1.. walk the compressed prefix.
   if (split > 0) {
     const int csplit = split - 1;
-    const size_t bh_nb = static_cast<size_t>(bh) * NB;
-    const int32_t* kc_row = p.k_codes + static_cast<size_t>(bh) * WD * T;
-    const int32_t* vc_row = p.v_codes + static_cast<size_t>(bh) * WD * T;
-    const int ntiles = (p.comp_len + kTile - 1) / kTile;
+    const int ntiles = (comp_len + kTile - 1) / kTile;
     const int tile_lo = csplit * p.tiles_per_split;
     const int tile_hi = min(ntiles, tile_lo + p.tiles_per_split);
-    const int pad = p.pad_start[bh / p.hkv];
+    const int pad = p.pad_start[seq];
     for (int tile = tile_lo; tile < tile_hi; ++tile) {
       const int t0 = tile * kTile;
-      const int n_valid = min(kTile, p.comp_len - t0);
+      const int n_valid = min(kTile, comp_len - t0);
       if (t0 + n_valid <= pad) continue;  // wholly left of the padding
       __syncthreads();  // q_s ready; previous tile's smem reads done
       const int blk0 = t0 / G;
+      if constexpr (PAGED) {
+        if (tid < NBT) {
+          const int blk = min(blk0 + tid, NB - 1);
+          const int pid = max(p.block_table[seq * p.maxp + blk / p.pb], 0);
+          lrow_s[tid] = pid * p.hkv + bh % p.hkv;
+          loff_s[tid] = blk % p.pb;
+        }
+        __syncthreads();
+      }
+      // Index of the tile's block j among a leaf's [rows, NBS] blocks.
+      auto blk_at = [&](int j) -> size_t {
+        if constexpr (PAGED)
+          return static_cast<size_t>(lrow_s[j]) * NBS + loff_s[j];
+        else
+          return static_cast<size_t>(bh) * NB + blk0 + j;
+      };
+      // Offset of the tile's token tt in row x of a [rows, X, TS] leaf.
+      auto tok_at = [&](int X, int x, int tt) -> size_t {
+        if constexpr (PAGED) {
+          const int j = tt / G;
+          return (static_cast<size_t>(lrow_s[j]) * X + x) * TS +
+                 loff_s[j] * G + (tt - j * G);
+        } else {
+          return (static_cast<size_t>(bh) * X + x) * TS + t0 + tt;
+        }
+      };
+      // Offset of (rank rr, tile block j) in a [rows, R, NBS] leaf.
+      auto lane_at = [&](int rr, int j) -> size_t {
+        if constexpr (PAGED)
+          return (static_cast<size_t>(lrow_s[j]) * R + rr) * NBS + loff_s[j];
+        else
+          return (static_cast<size_t>(bh) * R + rr) * NB + blk0 + j;
+      };
 
       // K folds per quant block of the tile.
       for (int i = tid; i < NBT * GQ * D; i += kTile) {
         const int j = i / (GQ * D), rem = i % (GQ * D);
         const int g = rem / D, dd = rem % D;
         const int blk = blk0 + j;
-        qs_s[i] = blk < NB ? q_s[g * D + dd] * ld(p.k_scale + (bh_nb + blk) * D + dd)
+        qs_s[i] = blk < NB ? q_s[g * D + dd] * ld(p.k_scale + blk_at(j) * D + dd)
                            : 0.0f;
       }
       for (int item = warp; item < NBT * GQ * (1 + R); item += kWarps) {
@@ -229,17 +311,17 @@ __global__ void __launch_bounds__(kTile) decode_split_kernel(Params p) {
         const int blk = blk0 + j;
         float acc_d = 0.0f;
         if (blk < NB && which == 0) {
-          const bf16* src = p.k_mn + (bh_nb + blk) * D;
+          const bf16* src = p.k_mn + blk_at(j) * D;
 #pragma unroll 4
           for (int dd = lane; dd < D; dd += 32) acc_d += q_s[g * D + dd] * ld(src + dd);
         } else if (blk < NB) {
-          const size_t row = ((bh_nb + blk) * R + (which - 1)) * D;
+          const size_t row = (blk_at(j) * R + (which - 1)) * D;
 #pragma unroll 4
           for (int dd = lane; dd < D; dd += 32)
             acc_d += q_s[g * D + dd] * ldb<BASE8>(p.kpt, row + dd);
           if constexpr (BASE8)  // both int8 scales of (block, rank) fold in here
-            acc_d *= p.kpt_scale[(bh_nb + blk) * R + which - 1] *
-                     p.kqt_scale[(static_cast<size_t>(bh) * R + which - 1) * NB + blk];
+            acc_d *= p.kpt_scale[blk_at(j) * R + which - 1] *
+                     p.kqt_scale[lane_at(which - 1, j)];
         }
         acc_d = warp_sum(acc_d);
         if (lane == 0) {
@@ -254,11 +336,11 @@ __global__ void __launch_bounds__(kTile) decode_split_kernel(Params p) {
       for (int i = tid; i < WD * kTile; i += kTile) {
         const int w = i / kTile, tt = i % kTile;
         vw_s[w * VWS + tt] =
-            tt < n_valid ? vc_row[static_cast<size_t>(w) * T + t0 + tt] : 0;
+            tt < n_valid ? p.v_codes[tok_at(WD, w, tt)] : 0;
       }
       for (int i = tid; i < NGV * kTile; i += kTile) {
         const int g = i / kTile, tt = i % kTile;
-        const size_t off = (static_cast<size_t>(bh) * NGV + g) * T + t0 + tt;
+        const size_t off = tok_at(NGV, g, tt);
         vs_s[i] = tt < n_valid ? ld(p.v_scale + off) : 0.0f;
         vm_s[i] = tt < n_valid ? ld(p.v_mn + off) : 0.0f;
       }
@@ -267,9 +349,8 @@ __global__ void __launch_bounds__(kTile) decode_split_kernel(Params p) {
         const int rr = i / kTile, tt = i % kTile;
         float vq = 0.0f;
         if (tt < n_valid) {
-          vq = ldb<BASE8>(p.vqt, (static_cast<size_t>(bh) * R + rr) * T + t0 + tt);
-          if constexpr (BASE8)
-            vq *= p.vqt_scale[(static_cast<size_t>(bh) * R + rr) * NB + blk0 + tt / G];
+          vq = ldb<BASE8>(p.vqt, tok_at(R, rr, tt));
+          if constexpr (BASE8) vq *= p.vqt_scale[lane_at(rr, tt / G)];
         }
         vq_s[i] = vq;
       }
@@ -279,8 +360,8 @@ __global__ void __launch_bounds__(kTile) decode_split_kernel(Params p) {
         const int blk = blk0 + j;
         float vp = 0.0f;
         if (blk < NB) {
-          vp = ldb<BASE8>(p.vpt, (bh_nb + blk) * R * D + rem);
-          if constexpr (BASE8) vp *= p.vpt_scale[(bh_nb + blk) * R + rem / D];
+          vp = ldb<BASE8>(p.vpt, blk_at(j) * R * D + rem);
+          if constexpr (BASE8) vp *= p.vpt_scale[blk_at(j) * R + rem / D];
         }
         vp_s[i] = vp;
       }
@@ -288,22 +369,22 @@ __global__ void __launch_bounds__(kTile) decode_split_kernel(Params p) {
       if (KO) {
         for (int i = tid; i < NBT * KOH; i += kTile) {
           const int j = i / KOH, blk = blk0 + j;
-          const bool live = blk * G < p.comp_len;
-          const size_t off = (bh_nb + blk) * KOH + i % KOH;
+          const bool live = blk * G < comp_len;
+          const size_t off = blk_at(j) * KOH + i % KOH;
           koi_s[i] = live ? p.k_out_idx[off] : 0;
           voi_s[i] = live ? p.v_out_idx[off] : 0;
         }
         for (int i = tid; i < NBT * KO; i += kTile) {
           const int j = i / KO, blk = blk0 + j;
-          const bool live = blk * G < p.comp_len;
-          const size_t off = (bh_nb + blk) * KO + i % KO;
+          const bool live = blk * G < comp_len;
+          const size_t off = blk_at(j) * KO + i % KO;
           kov_s[i] = live ? ld(p.k_out_val + off) : 0.0f;
           vov_s[i] = live ? ld(p.v_out_val + off) : 0.0f;
         }
         for (int i = tid; i < NBT * kBnd; i += kTile) {
           const int j = i / kBnd, blk = blk0 + j;
-          const bool live = blk * G < p.comp_len;
-          const size_t off = (bh_nb + blk) * kBnd + i % kBnd;
+          const bool live = blk * G < comp_len;
+          const size_t off = blk_at(j) * kBnd + i % kBnd;
           kob_s[i] = live ? p.k_out_bnd[off] : -1;  // -1: empty segments
           vob_s[i] = live ? p.v_out_bnd[off] : -1;
         }
@@ -323,7 +404,7 @@ __global__ void __launch_bounds__(kTile) decode_split_kernel(Params p) {
 #pragma unroll
           for (int i = 0; i < 4; ++i)
             words[i] = w0 + i < WD ? static_cast<uint32_t>(
-                kc_row[static_cast<size_t>(w0 + i) * T + t]) : 0u;
+                p.k_codes[tok_at(WD, w0 + i, tid)]) : 0u;
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
             if (w0 + i >= WD) break;
@@ -345,7 +426,7 @@ __global__ void __launch_bounds__(kTile) decode_split_kernel(Params p) {
 #pragma unroll
         for (int g = 0; g < GQ; ++g) s[g] += qm_s[j * GQ + g];
         for (int rr = 0; rr < R; ++rr) {
-          const float kq = ldb<BASE8>(p.kqt, (static_cast<size_t>(bh) * R + rr) * T + t);
+          const float kq = ldb<BASE8>(p.kqt, tok_at(R, rr, tid));
 #pragma unroll
           for (int g = 0; g < GQ; ++g) s[g] += qp_s[(j * GQ + g) * R + rr] * kq;
         }
@@ -429,7 +510,7 @@ __global__ void __launch_bounds__(kTile) decode_split_kernel(Params p) {
     // Residual tier: at most `group` <= kTile bf16 tokens. One warp per
     // token for the scores (lanes over channels, coalesced), staged in p_s.
     __syncthreads();  // q_s ready
-    const int n_valid = p.resid_len;
+    const int n_valid = resid_len;
     for (int tt = warp; tt < n_valid; tt += kWarps) {
       const bf16* kr = p.k_resid + (static_cast<size_t>(bh) * G + tt) * D;
       float part[GQ];
@@ -467,17 +548,20 @@ __global__ void __launch_bounds__(kTile) decode_split_kernel(Params p) {
                     l_run, acc);
 }
 
+constexpr bool kPaged = GEAR_DECODE_PAGED != 0;
+
 template <int BITS, int GQ, bool BASE8>
 cudaError_t launch_split(const Params& p, int bh, size_t smem,
                          cudaStream_t stream) {
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
-        decode_split_kernel<BITS, GQ, BASE8>,
+        decode_split_kernel<BITS, GQ, BASE8, kPaged>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (e != cudaSuccess) return e;
   }
   dim3 grid(bh, p.n_split + 1);
-  decode_split_kernel<BITS, GQ, BASE8><<<grid, kTile, smem, stream>>>(p);
+  decode_split_kernel<BITS, GQ, BASE8, kPaged>
+      <<<grid, kTile, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
@@ -495,7 +579,17 @@ cudaError_t launch_gq(const Params& p, int bh, int gq, size_t smem,
 
 }  // namespace
 
-extern "C" int GEAR_CAT(gear_decode_attention_b, GEAR_DECODE_BITS)(
+#if GEAR_DECODE_PAGED
+#define GEAR_DECODE_ENTRY GEAR_CAT(gear_decode_attention_paged_b, GEAR_DECODE_BITS)
+#else
+#define GEAR_DECODE_ENTRY GEAR_CAT(gear_decode_attention_b, GEAR_DECODE_BITS)
+#endif
+
+// One signature for both forms. Dense: lens and block_table are null, maxp
+// and pb 0, comp_len / resid_len the lengths all rows share. Paged: t and nb
+// are a sequence's capacity (MAXP * PB * group tokens, MAXP * PB blocks),
+// comp_len a host bound on every row's comp_len, resid_len unused.
+extern "C" int GEAR_DECODE_ENTRY(
     const float* q, const int32_t* k_codes, const void* k_scale,
     const void* k_mn, const void* kpt, const void* kqt, const int32_t* v_codes,
     const void* v_scale, const void* v_mn, const void* vpt, const void* vqt,
@@ -504,11 +598,15 @@ extern "C" int GEAR_CAT(gear_decode_attention_b, GEAR_DECODE_BITS)(
     const float* vqt_scale, const int32_t* k_out_idx, const void* k_out_val,
     const int32_t* k_out_bnd, const int32_t* v_out_idx, const void* v_out_val,
     const int32_t* v_out_bnd, float* part_acc, float* part_ml, float* out,
+    const int32_t* lens, const int32_t* block_table,
     int bh, int hkv, int gq, int d, int t, int nb, int r, int group,
     int v_group, int base8, int ko, int out_pad, int comp_len, int resid_len,
-    int n_split, int tiles_per_split, cudaStream_t stream) {
+    int n_split, int tiles_per_split, int maxp, int pb, cudaStream_t stream) {
   if (kTile % group != 0 || d > kTile || group > kTile || ko % 2 != 0 ||
       out_pad < 0 || out_pad > ko)
+    return cudaErrorInvalidValue;
+  if (kPaged && !(lens && block_table && maxp > 0 && pb > 0 &&
+                  nb == maxp * pb && bh % hkv == 0))
     return cudaErrorInvalidValue;
   if (base8 && !(kpt_scale && kqt_scale && vpt_scale && vqt_scale))
     return cudaErrorInvalidValue;
@@ -542,6 +640,10 @@ extern "C" int GEAR_CAT(gear_decode_attention_b, GEAR_DECODE_BITS)(
   p.v_out_bnd = v_out_bnd;
   p.part_acc = part_acc;
   p.part_ml = part_ml;
+  p.lens = lens;
+  p.block_table = block_table;
+  p.maxp = maxp;
+  p.pb = pb;
   p.hkv = hkv;
   p.d = d;
   p.t = t;
@@ -556,7 +658,8 @@ extern "C" int GEAR_CAT(gear_decode_attention_b, GEAR_DECODE_BITS)(
   p.n_split = n_split;
   p.tiles_per_split = tiles_per_split;
   constexpr int kBits = GEAR_DECODE_BITS;
-  const size_t smem = split_smem_bytes(gq, d, kBits, r, group, v_group, ko);
+  const size_t smem =
+      split_smem_bytes(gq, d, kBits, r, group, v_group, ko, kPaged);
   const cudaError_t e =
       base8 ? launch_gq<kBits, true>(p, bh, gq, smem, stream)
             : launch_gq<kBits, false>(p, bh, gq, smem, stream);

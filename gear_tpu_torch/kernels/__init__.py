@@ -6,6 +6,7 @@ def _wrappers() -> dict:
 
     return {
         "decode_attention": decode.decode_attention,
+        "decode_attention_paged": decode.decode_attention_paged,
         "flash_decode": flash.flash_decode,
         "quant_pack_channels": pack.quant_pack_channels,
         "quant_pack_tokens": pack.quant_pack_tokens,

@@ -2,7 +2,8 @@
 
 The sources under ``gear_tpu_torch/csrc/`` have a plain C interface. At first
 use they are compiled for Hopper (``sm_90a``), one ``nvcc`` process per
-unit (a source, or ``decode.cu`` once per code width), all started together,
+unit (a source, or ``decode.cu`` once per code width and form: dense cache
+or page pool), all started together,
 and linked into one shared library under ``gear_tpu_torch/_build/`` (listed
 in ``.gitignore``). The library's name
 carries a hash of the sources, so an edited source is rebuilt. Nothing here
@@ -25,10 +26,12 @@ CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 DECODE_BITS = (2, 4, 8)
 # (source, extra flags, object name): decode.cu holds 8 instantiations per
-# code width and takes the longest, so each width is a unit of its own
+# code width and form (dense cache, page pool) and takes the longest, so each
+# width and form is a unit of its own
 UNITS = (("pack.cu", (), "pack.o"), ("flash.cu", (), "flash.o")) + tuple(
-    ("decode.cu", (f"-DGEAR_DECODE_BITS={b}",), f"decode_b{b}.o")
-    for b in DECODE_BITS)
+    ("decode.cu", (f"-DGEAR_DECODE_BITS={b}", f"-DGEAR_DECODE_PAGED={p}"),
+     f"decode{'_paged' if p else ''}_b{b}.o")
+    for b in DECODE_BITS for p in (0, 1))
 FILES = ("pack.cu", "decode.cu", "flash.cu", "attn_common.cuh")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -42,8 +45,8 @@ _I64 = ctypes.c_int64
 SIGNATURES = {
     "gear_quant_pack_tokens": [_P, _P, _P, _P, _I64, _I, _I, _I, _P],
     "gear_quant_pack_channels": [_P, _P, _P, _P, _I64, _I, _I, _I, _P],
-    **{f"gear_decode_attention_b{b}": [_P] * 27 + [_I] * 16 + [_P]
-       for b in DECODE_BITS},
+    **{f"gear_decode_attention{form}_b{b}": [_P] * 29 + [_I] * 18 + [_P]
+       for b in DECODE_BITS for form in ("", "_paged")},
     "gear_flash_decode": [_P] * 7 + [_I] * 7 + [_P],
 }
 

@@ -5,7 +5,12 @@ Port of ``gear_tpu/kernels/decode.py``: the Pallas ``_decode_kernel`` becomes
 sidebands, bf16 or int8 low-rank bases, sorted COO outliers, the residual
 tier, ``pad_start`` and the sliding window). :func:`attend_fused` is the
 drop-in for ``cache.attend``; :func:`decode_attention` is the launching
-wrapper over flattened ``[BH, ...]`` operands.
+wrapper over flattened ``[BH, ...]`` operands. The paged form of the TPU
+kernel (``decode_attention_paged`` / ``attend_paged`` there) is the same
+source built with ``-DGEAR_DECODE_PAGED=1``: :func:`decode_attention_paged`
+reads the physical page pool through per-sequence block tables, with each
+sequence's lengths taken from device memory; :func:`attend_paged` is the
+drop-in for ``paged.attend_gathered``.
 
 On a CPU tensor :func:`attend_fused` computes the plain version,
 ``gear_tpu_torch.cache.attend``; on a CUDA tensor it launches the kernel, or
@@ -71,6 +76,95 @@ def _ptr(x):
     return None if x is None else x.data_ptr()
 
 
+def _check_cache_leaves(dev, lead: tuple, nbs: int, ts: int, d: int,
+                        bits: int, v_group: int, out_pad: int,
+                        leaves: dict) -> tuple[bool, int]:
+    """Check the compressed leaves of a dense cache (``lead = (BH,)``, a
+    row's ``nbs`` blocks and ``ts`` tokens) or of a page pool (``lead =
+    (P, H)``, a page's): all on ``dev``, contiguous, of the types and shapes
+    the kernel takes. int8 bases need their four scales, outliers come all
+    six or none. Returns (bases are int8, stored outliers per block)."""
+    kpt = leaves["kpt"]
+    r = kpt.shape[-2]
+    ngv, wd = d // v_group, d * bits // 32
+    base8 = kpt.dtype == torch.int8
+    base_dt = torch.int8 if base8 else torch.bfloat16
+    bf = torch.bfloat16
+    expect = {
+        "k_codes": (torch.int32, (wd, ts)), "v_codes": (torch.int32, (wd, ts)),
+        "k_scale": (bf, (nbs, d)), "k_mn": (bf, (nbs, d)),
+        "v_scale": (bf, (ngv, ts)), "v_mn": (bf, (ngv, ts)),
+        "kpt": (base_dt, (nbs, r, d)), "vpt": (base_dt, (nbs, r, d)),
+        "kqt": (base_dt, (r, ts)), "vqt": (base_dt, (r, ts)),
+    }
+    scales = ("kpt_scale", "kqt_scale", "vqt_scale", "vpt_scale")
+    if base8:
+        expect.update({
+            "kpt_scale": (torch.float32, (nbs, r)),
+            "vpt_scale": (torch.float32, (nbs, r)),
+            "kqt_scale": (torch.float32, (r, nbs)),
+            "vqt_scale": (torch.float32, (r, nbs)),
+        })
+    elif any(leaves.get(f) is not None for f in scales):
+        raise ValueError("base scales given with bases that are not int8")
+    outl = ("k_out_idx", "k_out_val", "v_out_idx", "v_out_val", "k_out_bnd",
+            "v_out_bnd")
+    ko = 0
+    if any(leaves.get(f) is not None for f in outl):
+        if leaves.get("k_out_val") is None:
+            raise ValueError("k_out_val is missing")
+        ko = leaves["k_out_val"].shape[-1]
+        if ko % 2:
+            raise ValueError(f"odd outlier count {ko}")
+        if not 0 <= out_pad <= ko:
+            raise ValueError(f"out_pad={out_pad} outside [0, {ko}]")
+        expect.update({
+            "k_out_idx": (torch.int32, (nbs, ko // 2)),
+            "v_out_idx": (torch.int32, (nbs, ko // 2)),
+            "k_out_val": (bf, (nbs, ko)), "v_out_val": (bf, (nbs, ko)),
+            "k_out_bnd": (torch.int32, (nbs, BND_LANES)),
+            "v_out_bnd": (torch.int32, (nbs, BND_LANES)),
+        })
+    check_operands(dev, {f: (leaves.get(f), dt, lead + shape)
+                         for f, (dt, shape) in expect.items()})
+    if bits not in (2, 4, 8):
+        raise ValueError(f"unsupported bits={bits}")
+    group = ts // nbs
+    if d > TILE or TILE % group or d % v_group:
+        raise ValueError(f"unsupported head_dim={d} / group={group} / "
+                         f"v_group={v_group}")
+    return base8, ko
+
+
+# The order in which both C entry points take the cache's leaves.
+_LEAF_ORDER = ("k_codes", "k_scale", "k_mn", "kpt", "kqt", "v_codes",
+               "v_scale", "v_mn", "vpt", "vqt")
+_EXTRA_ORDER = ("kpt_scale", "kqt_scale", "vpt_scale", "vqt_scale",
+                "k_out_idx", "k_out_val", "k_out_bnd", "v_out_idx",
+                "v_out_val", "v_out_bnd")
+
+
+def _launch(entry: str, q, leaves: dict, k_resid, v_resid, pad_start, lens,
+            block_table, ints: tuple, n_split: int) -> torch.Tensor:
+    """Allocate the splits' partial states and the output, call the C entry
+    point on the current stream, raise on a CUDA error."""
+    bh, gq, d = q.shape
+    dev = q.device
+    ns = n_split + 1
+    part_acc = torch.empty((bh, ns, gq, d), dtype=torch.float32, device=dev)
+    part_ml = torch.empty((bh, ns, gq, 2), dtype=torch.float32, device=dev)
+    out = torch.empty((bh, gq, d), dtype=torch.float32, device=dev)
+    err = getattr(_build.library(), entry)(
+        q.data_ptr(), *[leaves[f].data_ptr() for f in _LEAF_ORDER],
+        k_resid.data_ptr(), v_resid.data_ptr(), pad_start.data_ptr(),
+        *[_ptr(leaves.get(f)) for f in _EXTRA_ORDER],
+        part_acc.data_ptr(), part_ml.data_ptr(), out.data_ptr(),
+        _ptr(lens), _ptr(block_table), *ints,
+        torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, entry)
+    return out
+
+
 def decode_attention(q, k_codes, k_scale, k_mn, kpt, kqt, v_codes, v_scale,
                      v_mn, vqt, vpt, k_resid, v_resid, pad_start, *,
                      kpt_scale=None, kqt_scale=None, vqt_scale=None,
@@ -98,86 +192,38 @@ def decode_attention(q, k_codes, k_scale, k_mn, kpt, kqt, v_codes, v_scale,
     bh, gq, d = q.shape
     t = k_codes.shape[-1]
     nb, r = kpt.shape[1], kpt.shape[2]
-    ngv = d // v_group
-    wd = d * bits // 32
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"decode_attention needs CUDA tensors, got {dev}")
-    base8 = kpt.dtype == torch.int8
-    base_dt = torch.int8 if base8 else torch.bfloat16
-    expect = {
+    leaves = dict(
+        k_codes=k_codes, k_scale=k_scale, k_mn=k_mn, kpt=kpt, kqt=kqt,
+        v_codes=v_codes, v_scale=v_scale, v_mn=v_mn, vqt=vqt, vpt=vpt,
+        kpt_scale=kpt_scale, kqt_scale=kqt_scale, vqt_scale=vqt_scale,
+        vpt_scale=vpt_scale, k_out_idx=k_out_idx, k_out_val=k_out_val,
+        v_out_idx=v_out_idx, v_out_val=v_out_val, k_out_bnd=k_out_bnd,
+        v_out_bnd=v_out_bnd)
+    if nb * group != t or group > TILE:
+        raise ValueError(f"bad group={group} for {nb} blocks of {t} tokens")
+    base8, ko = _check_cache_leaves(dev, (bh,), nb, t, d, bits, v_group,
+                                    out_pad, leaves)
+    check_operands(dev, {
         "q": (q, torch.float32, (bh, gq, d)),
-        "k_codes": (k_codes, torch.int32, (bh, wd, t)),
-        "k_scale": (k_scale, torch.bfloat16, (bh, nb, d)),
-        "k_mn": (k_mn, torch.bfloat16, (bh, nb, d)),
-        "kpt": (kpt, base_dt, (bh, nb, r, d)),
-        "kqt": (kqt, base_dt, (bh, r, t)),
-        "v_codes": (v_codes, torch.int32, (bh, wd, t)),
-        "v_scale": (v_scale, torch.bfloat16, (bh, ngv, t)),
-        "v_mn": (v_mn, torch.bfloat16, (bh, ngv, t)),
-        "vqt": (vqt, base_dt, (bh, r, t)),
-        "vpt": (vpt, base_dt, (bh, nb, r, d)),
         "k_resid": (k_resid, torch.bfloat16, (bh, group, d)),
         "v_resid": (v_resid, torch.bfloat16, (bh, group, d)),
         "pad_start": (pad_start, torch.int32, (bh // hkv,)),
-    }
-    scales = (kpt_scale, kqt_scale, vqt_scale, vpt_scale)
-    if base8:
-        expect.update({
-            "kpt_scale": (kpt_scale, torch.float32, (bh, nb, r)),
-            "kqt_scale": (kqt_scale, torch.float32, (bh, r, nb)),
-            "vqt_scale": (vqt_scale, torch.float32, (bh, r, nb)),
-            "vpt_scale": (vpt_scale, torch.float32, (bh, nb, r)),
-        })
-    elif any(x is not None for x in scales):
-        raise ValueError("base scales given with bases that are not int8")
-    outl = (k_out_idx, k_out_val, v_out_idx, v_out_val, k_out_bnd, v_out_bnd)
-    ko = 0
-    if any(x is not None for x in outl):
-        if k_out_val is None:
-            raise ValueError("k_out_val is missing")
-        ko = k_out_val.shape[-1]
-        if ko % 2:
-            raise ValueError(f"odd outlier count {ko}")
-        if not 0 <= out_pad <= ko:
-            raise ValueError(f"out_pad={out_pad} outside [0, {ko}]")
-        expect.update({
-            "k_out_idx": (k_out_idx, torch.int32, (bh, nb, ko // 2)),
-            "k_out_val": (k_out_val, torch.bfloat16, (bh, nb, ko)),
-            "v_out_idx": (v_out_idx, torch.int32, (bh, nb, ko // 2)),
-            "v_out_val": (v_out_val, torch.bfloat16, (bh, nb, ko)),
-            "k_out_bnd": (k_out_bnd, torch.int32, (bh, nb, BND_LANES)),
-            "v_out_bnd": (v_out_bnd, torch.int32, (bh, nb, BND_LANES)),
-        })
-    check_operands(dev, expect)
-    if bits not in (2, 4, 8) or gq not in GQ_SIZES or bh % hkv:
-        raise ValueError(f"unsupported bits={bits} / GQ={gq} / hkv={hkv}")
-    if d > TILE or TILE % group or group > TILE or d % v_group:
-        raise ValueError(f"unsupported head_dim={d} / group={group} / "
-                         f"v_group={v_group}")
+    })
+    if gq not in GQ_SIZES or bh % hkv:
+        raise ValueError(f"unsupported GQ={gq} / hkv={hkv}")
     if not (0 <= comp_len <= t and 0 <= resid_len <= group
-            and comp_len % group == 0 and nb * group == t):
+            and comp_len % group == 0):
         raise ValueError(f"bad lengths comp_len={comp_len} resid_len={resid_len}")
 
     n_split, per = splits(comp_len, bh, dev)
-    ns = n_split + 1
-    part_acc = torch.empty((bh, ns, gq, d), dtype=torch.float32, device=dev)
-    part_ml = torch.empty((bh, ns, gq, 2), dtype=torch.float32, device=dev)
-    out = torch.empty((bh, gq, d), dtype=torch.float32, device=dev)
-    lib = _build.library()
-    err = getattr(lib, f"gear_decode_attention_b{bits}")(
-        q.data_ptr(), k_codes.data_ptr(), k_scale.data_ptr(), k_mn.data_ptr(),
-        kpt.data_ptr(), kqt.data_ptr(), v_codes.data_ptr(), v_scale.data_ptr(),
-        v_mn.data_ptr(), vpt.data_ptr(), vqt.data_ptr(), k_resid.data_ptr(),
-        v_resid.data_ptr(), pad_start.data_ptr(),
-        _ptr(kpt_scale), _ptr(kqt_scale), _ptr(vpt_scale), _ptr(vqt_scale),
-        _ptr(k_out_idx), _ptr(k_out_val), _ptr(k_out_bnd),
-        _ptr(v_out_idx), _ptr(v_out_val), _ptr(v_out_bnd),
-        part_acc.data_ptr(), part_ml.data_ptr(), out.data_ptr(),
-        bh, hkv, gq, d, t, nb, r, group, v_group, int(base8), ko, out_pad,
-        comp_len, resid_len, n_split, per,
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(err, "gear_decode_attention")
+    out = _launch(
+        f"gear_decode_attention_b{bits}", q, leaves, k_resid, v_resid,
+        pad_start, None, None,
+        (bh, hkv, gq, d, t, nb, r, group, v_group, int(base8), ko, out_pad,
+         comp_len, resid_len, n_split, per, 0, 0), n_split)
     decode_attention.launches += 1
     return out
 
@@ -264,4 +310,129 @@ def attend_fused(spec: kvcache.CacheSpec, cache: kvcache.LayerCache,
         comp_len=cache.comp_len, resid_len=cache.resid_len, hkv=hkv,
         bits=spec.bits, group=spec.group, v_group=spec.v_group)
     out = out.reshape(b, hkv, -1, d)[:, :, :gq_n]
+    return out.reshape(b, hq, qn, d).to(q.dtype)
+
+
+def decode_attention_paged(lens, pad_start, block_table, q, kpt, k_codes,
+                           k_scale, k_mn, kqt, v_codes, v_scale, v_mn, vqt,
+                           vpt, k_resid, v_resid, *, kpt_scale=None,
+                           kqt_scale=None, vqt_scale=None, vpt_scale=None,
+                           k_out_idx=None, k_out_val=None, v_out_idx=None,
+                           v_out_val=None, k_out_bnd=None, v_out_bnd=None,
+                           out_pad: int = 0, max_comp_len: int, bits: int,
+                           group: int, v_group: int,
+                           page_blocks: int) -> torch.Tensor:
+    """Launch the paged decode kernel: :func:`decode_attention`'s arithmetic
+    read straight from the physical page pool.
+
+    lens int32 [B, 3] (comp_len, resid_len, prefill_len per sequence, read on
+    the device); pad_start int32 [B]; block_table int32 [B, MAXP] (negative
+    entries are clamped to page 0 and masked by comp_len); q [B * H, GQ, D]
+    f32 with sm_scale folded in. Pool leaves [P, H, ...]: k/v_codes int32
+    [P, H, D//fpi, PT]; k_scale/k_mn bf16 [P, H, PB, D]; v_scale/v_mn bf16
+    [P, H, NGV, PT]; kpt/vpt [P, H, PB, R, D] and kqt/vqt [P, H, R, PT], all
+    four bf16 or all four int8, int8 with f32 scales kpt/vpt_scale
+    [P, H, PB, R] and kqt/vqt_scale [P, H, R, PB] (blocks in lanes, as the
+    pool stores them); outliers (all six or none) k/v_out_idx int32
+    [P, H, PB, KO//2], k/v_out_val bf16 [P, H, PB, KO], k/v_out_bnd int32
+    [P, H, PB, 128]. k/v_resid bf16 [B, H, G, D]. ``max_comp_len`` is a host
+    bound on every comp_len: it sizes the grid, so no length is fetched.
+    Returns [B * H, GQ, D] f32.
+    """
+    bh, gq, d = q.shape
+    b, maxp = block_table.shape
+    n_pages, hkv = k_codes.shape[0], k_codes.shape[1]
+    pb = page_blocks
+    pt = pb * group
+    r = kpt.shape[3]
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"decode_attention_paged needs CUDA tensors, got {dev}")
+    leaves = dict(
+        k_codes=k_codes, k_scale=k_scale, k_mn=k_mn, kpt=kpt, kqt=kqt,
+        v_codes=v_codes, v_scale=v_scale, v_mn=v_mn, vqt=vqt, vpt=vpt,
+        kpt_scale=kpt_scale, kqt_scale=kqt_scale, vqt_scale=vqt_scale,
+        vpt_scale=vpt_scale, k_out_idx=k_out_idx, k_out_val=k_out_val,
+        v_out_idx=v_out_idx, v_out_val=v_out_val, k_out_bnd=k_out_bnd,
+        v_out_bnd=v_out_bnd)
+    if group > TILE:
+        raise ValueError(f"unsupported group={group}")
+    base8, ko = _check_cache_leaves(dev, (n_pages, hkv), pb, pt, d, bits,
+                                    v_group, out_pad, leaves)
+    check_operands(dev, {
+        "lens": (lens, torch.int32, (b, 3)),
+        "pad_start": (pad_start, torch.int32, (b,)),
+        "block_table": (block_table, torch.int32, (b, maxp)),
+        "q": (q, torch.float32, (b * hkv, gq, d)),
+        "k_resid": (k_resid, torch.bfloat16, (b, hkv, group, d)),
+        "v_resid": (v_resid, torch.bfloat16, (b, hkv, group, d)),
+    })
+    if gq not in GQ_SIZES:
+        raise ValueError(f"unsupported GQ={gq}")
+    t = maxp * pt
+    if not (0 <= max_comp_len <= t and max_comp_len % group == 0):
+        raise ValueError(f"bad max_comp_len={max_comp_len}")
+
+    n_split, per = splits(max_comp_len, bh, dev)
+    out = _launch(
+        f"gear_decode_attention_paged_b{bits}", q, leaves, k_resid, v_resid,
+        pad_start, lens, block_table,
+        (bh, hkv, gq, d, t, maxp * pb, r, group, v_group, int(base8), ko,
+         out_pad, max_comp_len, 0, n_split, per, maxp, pb), n_split)
+    decode_attention_paged.launches += 1
+    return out
+
+
+decode_attention_paged.launches = 0
+
+
+def attend_paged(pspec, pool, seqs, q: torch.Tensor, *,
+                 sm_scale: float | None = None,
+                 pad_start: torch.Tensor | None = None,
+                 window: int | None = None) -> torch.Tensor:
+    """Decode attention for a batch of paged sequences
+    (``gear_tpu_torch.paged``), q [B, Hq, Qn, D] -> [B, Hq, Qn, D]; every row
+    masks by its own lengths.
+
+    CPU tensors take the plain version (``paged.attend_gathered``); CUDA
+    tensors go through :func:`decode_attention_paged`. ``window`` folds into
+    ``pad_start`` per sequence, from the device lengths (no sync):
+    ``pad = max(pad_start, comp_len + resid_len - window)``; it needs
+    ``window >= group`` (see :func:`attend_fused`).
+    """
+    from .. import paged
+
+    spec = pspec.spec
+    if window is not None and window < spec.group:
+        raise ValueError(f"window {window} < group {spec.group}")
+    if q.device.type == "cpu":
+        return paged.attend_gathered(pspec, pool, seqs, q, sm_scale=sm_scale,
+                                     pad_start=pad_start, window=window)
+    b, hq, qn, d = q.shape
+    qf, gq_n = pad_query(q, spec.num_kv_heads, sm_scale)
+    if pad_start is None:
+        pad = torch.zeros((b,), dtype=torch.int32, device=q.device)
+    else:
+        pad = pad_start.to(device=q.device, dtype=torch.int32)
+    if window is not None:
+        pad = torch.maximum(pad, seqs.comp_len + seqs.resid_len - window)
+
+    extra = {}
+    if spec.base_bits == 8:
+        extra.update({f: getattr(pool, f) for f in
+                      ("kpt_scale", "kqt_scale", "vqt_scale", "vpt_scale")})
+    if spec.outliers_per_block:
+        extra.update({f: getattr(pool, f) for f in
+                      ("k_out_idx", "k_out_val", "v_out_idx", "v_out_val",
+                       "k_out_bnd", "v_out_bnd")})
+        extra["out_pad"] = spec.ko_store - spec.outliers_per_block
+    out = decode_attention_paged(
+        seqs.lens, pad.contiguous(), seqs.block_table, qf, pool.kpt,
+        pool.k_codes, pool.k_scale, pool.k_mn, pool.kqt, pool.v_codes,
+        pool.v_scale, pool.v_mn, pool.vqt, pool.vpt, seqs.k_resid,
+        seqs.v_resid, **extra,
+        max_comp_len=int(seqs.host_lens[:, paged.COMP].max()),
+        bits=spec.bits, group=spec.group, v_group=spec.v_group,
+        page_blocks=pspec.page_blocks)
+    out = out.reshape(b, spec.num_kv_heads, -1, d)[:, :, :gq_n]
     return out.reshape(b, hq, qn, d).to(q.dtype)

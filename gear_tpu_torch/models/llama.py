@@ -17,7 +17,11 @@ The power-iteration inits can be injected with ``init(site, shape)``;
 ``site`` is ``("prefill", layer, which)`` in :func:`forward_prefill` and
 ``("decode", step, layer, which, comp_len)`` in :func:`forward_decode`
 (``which`` is ``"k"`` or ``"v"``; ``comp_len`` is the layer's compressed
-length before the flush). Without it they are drawn from ``generator``.
+length before the flush). The serving paths use
+``("serve_decode", slot, layer, which, comp_len)`` for a slot's flush
+(:func:`forward_decode_paged` and the dense ``serving.ServingEngine``) and
+``("serve_prefill", rid, layer, which)`` for a request's admission prefill.
+Without ``init`` the inits are drawn from ``generator``.
 """
 from __future__ import annotations
 
@@ -371,6 +375,48 @@ def forward_decode(params: dict, cfg: ModelConfig, token: torch.Tensor,
     caches.set_lengths(lc)
     h = rmsnorm(h, params["final_norm"], cfg.rms_eps)
     return logits_from_hidden(params, cfg, h)[:, 0], caches
+
+
+@torch.no_grad()
+def forward_decode_paged(params: dict, cfg: ModelConfig, token: torch.Tensor,
+                         position: torch.Tensor, pools, seqs, *, pspec,
+                         pad_start: torch.Tensor | None = None,
+                         init: InitFn | None = None,
+                         generator: torch.Generator | None = None,
+                         live=None, live_dev: torch.Tensor | None = None):
+    """One decode step over paged caches with per-sequence lengths: every
+    slot masks by its own comp_len / resid_len, so slots of different ages
+    decode in one forward pass.
+
+    token/position [B] (B = serving slots); ``pools`` is a ``paged.PagePool``
+    and ``seqs`` a ``paged.PagedSeqs`` whose residual tiers carry a leading
+    layer axis. Both are updated in place and returned after the logits
+    [B, V] f32. The lengths advance once per step (all layers share them).
+    ``live`` (host bools; ``live_dev`` the same mask on the device) parks
+    slots: a parked slot neither appends nor flushes. Attention goes through
+    ``kernels.decode.attend_paged``: the paged CUDA kernel for tensors on
+    the card, ``paged.attend_gathered`` on the CPU.
+    """
+    from .. import paged
+
+    h = params["embed"][token].to(cfg.dtype)[:, None]
+    cos, sin = rope_cos_sin(position[:, None], cfg.head_dim, cfg.rope_theta)
+    plan = paged.plan_append(pspec, seqs, live, live_dev=live_dev)
+    comp_before = {row: comp for row, comp, _, _ in plan.flushes}
+    for i in range(cfg.num_layers):
+        lp = _layer_slice(params["layers"], i)
+        q, k, v = _qkv(cfg, lp, h, cos, sin)
+        lpool, lseqs = pools.layer(i), seqs.layer(i)
+        p0 = None if init is None else (
+            lambda row, which, shape, i=i:
+            init(("serve_decode", row, i, which, comp_before[row]), shape))
+        paged.apply_append(pspec, lpool, lseqs, k, v, plan, p0=p0,
+                           generator=generator)
+        attn = fused.attend_paged(pspec, lpool, lseqs, q, pad_start=pad_start,
+                                  window=cfg.sliding_window)
+        h = _finish_layer(cfg, lp, h, attn)
+    h = rmsnorm(h, params["final_norm"], cfg.rms_eps)
+    return logits_from_hidden(params, cfg, h)[:, 0], pools, seqs
 
 
 def logits_from_hidden(params: dict, cfg: ModelConfig, h: torch.Tensor):

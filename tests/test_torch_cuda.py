@@ -5,17 +5,19 @@ fixture, so all workers collect the same tests). Run on the H100, where
 there is no JAX for ``tests/conftest.py`` to import, with
 ``python -m pytest -c /dev/null --noconftest --rootdir . tests/test_torch_cuda.py -q``.
 """
+import chip_smoke
 import pytest
 import torch
 
 from gear_tpu_torch import cache as TC
-from gear_tpu_torch import kernels
+from gear_tpu_torch import kernels, paged
 from gear_tpu_torch.config import CompressionConfig
 from gear_tpu_torch.engine import EngineConfig, InferenceEngine
 from gear_tpu_torch.kernels import decode as TK
 from gear_tpu_torch.kernels import flash as TF
 from gear_tpu_torch.kernels import pack as TP
 from gear_tpu_torch.models import llama, mistral
+from gear_tpu_torch.serving import PagedServingEngine, ServingEngine
 
 pytestmark = pytest.mark.cuda
 
@@ -207,3 +209,112 @@ def test_gear_prefill_on_the_card_matches_the_cpu(cuda, kw):
     # delta (|delta| < 8: 2**-6), bases to float32 sums in another order
     for a, b in zip(TC.dequantize_kv(spec, card), TC.dequantize_kv(spec, cpu)):
         torch.testing.assert_close(a.cpu(), b, rtol=0, atol=2 ** -6)
+
+
+def build_paged(gen, kw, hkv, page_blocks):
+    """``chip_smoke.build_paged`` at a smaller size: rows of 670 and 270
+    tokens on interleaved pages, a row sharing row 0's first page, a parked
+    row."""
+    kw = dict(kw)
+    d, g = kw.pop("head_dim", 128), kw.pop("group", 64)
+    return chip_smoke.build_paged(torch, gen, kw, hkv, page_blocks,
+                                  (600, 200), max_len=1024, n_pages=24, d=d,
+                                  g=g)
+
+
+PAGED_CASES = {
+    # name: (spec kwargs, kv heads, q heads, page_blocks, pad_start, window)
+    "gearl_int4_pb1": (dict(), 4, 4, 1, None, None),
+    "gearl_int4_pb4": (dict(), 4, 4, 4, None, None),
+    "gear_int4": (dict(outliers_per_block=162), 4, 4, 1, None, None),
+    "gear_int4_pb4_pad": (dict(outliers_per_block=162), 4, 4, 4,
+                          [0, 100, 0, 0], None),
+    "int2": (dict(bits=2), 4, 4, 2, None, None),
+    "int8": (dict(bits=8), 4, 4, 2, None, None),
+    "base8": (dict(base_bits=8), 4, 4, 1, None, None),
+    "gear_base8_pb4": (dict(outliers_per_block=162, base_bits=8), 2, 8, 4,
+                       None, None),
+    "gqa": (dict(), 2, 8, 2, None, None),
+    # cuts into the prefix of row 0 (670 tokens), not of row 1 (270)
+    "window": (dict(), 4, 4, 1, [0, 30, 0, 0], 300),
+    "group32_d64": (dict(outliers_per_block=40, group=32, head_dim=64), 4, 8,
+                    2, None, 200),
+}
+
+
+@pytest.mark.parametrize("name", list(PAGED_CASES))
+def test_paged_decode_kernel_matches_plain(cuda, name):
+    kw, hkv, hq, pb, pad, window = PAGED_CASES[name]
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    pspec, pool, seqs = build_paged(gen, kw, hkv, pb)
+    b = seqs.batch
+    assert len(set(seqs.host_lens[:, 0].tolist())) == b  # lengths differ
+    q = torch.randn((b, hq, 1, pspec.spec.head_dim), generator=gen,
+                    device=cuda)
+    pad_t = None if pad is None else torch.tensor(pad, dtype=torch.int32,
+                                                   device=cuda)
+    before = TK.decode_attention_paged.launches
+    got = TK.attend_paged(pspec, pool, seqs, q, pad_start=pad_t,
+                          window=window)
+    assert TK.decode_attention_paged.launches == before + 1
+    want = paged.attend_gathered(pspec, pool, seqs, q, pad_start=pad_t,
+                                 window=window)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got[-1], torch.zeros_like(got[-1]))  # the parked row
+    # both in float32 over the same stored state; only sum orders differ
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-4)
+    # the table matters: with row 0 pointed at row 1's pages it fails
+    swapped = paged.PagedSeqs(seqs.block_table.clone(), seqs.lens,
+                              seqs.k_resid, seqs.v_resid, seqs.host_table,
+                              seqs.host_lens)
+    swapped.block_table[0] = seqs.block_table[1, 0]
+    off = TK.attend_paged(pspec, pool, swapped, q, pad_start=pad_t,
+                          window=window)
+    assert not torch.allclose(off[0], want[0], rtol=1e-3, atol=1e-4)
+
+
+def test_paged_kernel_refuses_float32_pools(cuda):
+    spec = TC.CacheSpec(batch=1, num_kv_heads=2, head_dim=128, max_len=256,
+                        dtype=torch.float32, sideband_dtype=torch.float32)
+    pspec = paged.PagedSpec(spec=spec, n_pages=4, page_blocks=2)
+    pool = paged.init_pool(pspec, cuda)
+    seqs = paged.init_seqs(pspec, 1, cuda)
+    q = torch.randn((1, 2, 1, 128), device=cuda)
+    with pytest.raises(TypeError):
+        TK.attend_paged(pspec, pool, seqs, q)
+
+
+def test_paged_serving_on_the_card(cuda):
+    """Paged serving through the paged kernel: every request completes, the
+    pool drains, and the tokens are the dense serving engine's."""
+    cfg = llama.ModelConfig.tiny(head_dim=32, hidden_size=128, num_heads=4)
+    params = llama.init_params(cfg, device=cuda)
+    comp = CompressionConfig(num_layers=cfg.num_layers,
+                             compress_method="GEAR", quantize_bit=8,
+                             group_size=16, rank=2, prefill_rank=2, loop=2,
+                             left=0.05)
+
+    def init(site, shape):
+        gen = torch.Generator().manual_seed(hash(site) % (1 << 31))
+        return torch.rand(shape, generator=gen)
+
+    reqs = [(list(range(1, 20)), 40), ([9, 8, 7], 5), ([4, 5, 6, 7], 30)]
+    eng = PagedServingEngine(cfg, params, comp, n_slots=2, max_len=128,
+                             n_pages=16, page_blocks=2, init=init)
+    rids = [eng.submit(p, n) for p, n in reqs]
+    kernels.reset_launch_counts()
+    out = eng.run()
+    counts = kernels.launch_counts()
+    assert [len(out[r]) for r in rids] == [40, 5, 30]
+    assert eng.alloc.free_count() == 16
+    assert counts["decode_attention_paged"] > 0
+    assert counts["decode_attention_paged"] % cfg.num_layers == 0
+    assert counts["decode_attention"] == 0
+    assert counts["quant_pack_tokens"] == 3 * cfg.num_layers
+    dense = ServingEngine(cfg, params, comp, n_slots=2, max_len=128,
+                          init=init)
+    rids_d = [dense.submit(p, n) for p, n in reqs]
+    out_d = dense.run()
+    agree = sum(a == b for r, rd in zip(rids, rids_d)
+                for a, b in zip(out[r], out_d[rd]))
+    assert agree >= 0.9 * 75  # random-weight logits sit near ties

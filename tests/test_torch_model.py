@@ -191,7 +191,8 @@ def test_engine_eos_and_sampling(tiny):
 def test_port_imports_no_jax():
     code = ("import sys; import gear_tpu_torch, gear_tpu_torch.api, "
             "gear_tpu_torch.convert, gear_tpu_torch.kernels.decode, "
-            "gear_tpu_torch.kernels.pack, gear_tpu_torch.models.loader; "
+            "gear_tpu_torch.kernels.pack, gear_tpu_torch.models.loader, "
+            "gear_tpu_torch.paged, gear_tpu_torch.serving; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'gear_tpu')]; "
             "assert not bad, bad; print('ok')")
