@@ -207,6 +207,15 @@ def phase_pack(torch, timer, record):
 
 
 DECODE_KERNELS = ("decode_split_kernel", "attn_merge_kernel")
+# (role, instantiation) of the attention kernels the main paths launch:
+# decode_split_kernel<bits, GQ, int8 bases, paged>, flash_split_kernel<GQ>
+MAIN_PATH_KERNELS = (
+    ("B1 Llama-2-7B", "decode_split_kernel<4,1,0,0>"),
+    ("B1 Mistral-7B", "decode_split_kernel<4,4,0,0>"),
+    ("B4 Llama-2-7B", "flash_split_kernel<1>"),
+    ("B4 Mistral-7B", "flash_split_kernel<4>"),
+    ("B5 serving", "decode_split_kernel<4,1,0,1>"),
+)
 FLASH_KERNELS = ("flash_split_kernel", "attn_merge_kernel")
 
 
@@ -1173,12 +1182,13 @@ def main() -> int:
     _build.library()
     log(f"kernels built in {time.perf_counter() - t0:.1f} s -> {so.name}")
     (OUT / "nvcc_log.txt").write_text(build_log)
-    spills = [ln.strip() for ln in build_log.splitlines()
-              if "spill" in ln and not ln.strip().startswith("0 bytes")]
-    regs = [ln.strip() for ln in build_log.splitlines() if "registers" in ln]
-    log(f"ptxas: {len(regs)} kernels; register lines: "
-        f"{sorted(set(r.split('Used ')[-1] for r in regs))[:6]}; "
-        f"non-zero spill lines: {len(spills)}")
+    usage = _build.ptxas_usage(build_log)
+    spilled = sorted(k for k, (_, st, ld) in usage.items() if st or ld)
+    log(f"ptxas: {len(usage)} kernels, spills in {len(spilled)}: {spilled}")
+    log("ptxas, the main paths' attention kernels (registers, spill stores "
+        "/ loads bytes): " + "; ".join(
+            f"{role} {k}: {usage[k][0]} / {usage[k][1]} / {usage[k][2]}"
+            for role, k in MAIN_PATH_KERNELS if k in usage))
 
     from gear_tpu_torch.models import llama, mistral
 

@@ -1,7 +1,8 @@
 // Pieces shared by the two flash-decode kernels (decode.cu over the
-// compressed cache, flash.cu over the raw bf16 cache): warp reductions, the
-// online-softmax update over one tile of 128 tokens (one thread per token),
-// and the kernel that merges the token splits' (max, sum, acc) states.
+// compressed cache, flash.cu over the raw bf16 cache): asynchronous copies
+// into shared memory, warp reductions, the online-softmax update over one
+// tile of 128 tokens (one thread per token), and the kernel that merges the
+// token splits' (max, sum, acc) states.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -17,6 +18,34 @@ typedef __nv_bfloat16 bf16;
 
 __device__ __forceinline__ float ld(const bf16* p) {
   return __bfloat162float(*p);
+}
+
+// Asynchronous copies from device memory into shared memory (cp.async, sm_80
+// and later): 16 bytes through L2 only, or 4 bytes; both addresses aligned
+// to the size. A thread's copies issued since its last commit form one
+// group; wait<N> returns once at most N of its groups are still in flight,
+// and a __syncthreads() after it makes every thread's landed copies visible.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

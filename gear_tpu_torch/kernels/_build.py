@@ -16,6 +16,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -45,9 +46,9 @@ _I64 = ctypes.c_int64
 SIGNATURES = {
     "gear_quant_pack_tokens": [_P, _P, _P, _P, _I64, _I, _I, _I, _P],
     "gear_quant_pack_channels": [_P, _P, _P, _P, _I64, _I, _I, _I, _P],
-    **{f"gear_decode_attention{form}_b{b}": [_P] * 29 + [_I] * 18 + [_P]
+    **{f"gear_decode_attention{form}_b{b}": [_P] * 29 + [_I] * 19 + [_P]
        for b in DECODE_BITS for form in ("", "_paged")},
-    "gear_flash_decode": [_P] * 7 + [_I] * 7 + [_P],
+    "gear_flash_decode": [_P] * 7 + [_I] * 8 + [_P],
 }
 
 
@@ -72,10 +73,12 @@ def _source_tag() -> str:
 
 
 def build() -> tuple[Path, str]:
-    """Compile (if needed) -> (path of the shared library, compiler log)."""
+    """Compile (if needed) -> (path of the shared library, compiler log,
+    kept beside the library for later callers)."""
     so = BUILD_DIR / f"libgear_kernels_{_source_tag()}.so"
+    log_path = so.with_suffix(".log")
     if so.exists():
-        return so, ""
+        return so, log_path.read_text() if log_path.exists() else ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
@@ -103,8 +106,32 @@ def build() -> tuple[Path, str]:
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        log_path.write_text(log)
         os.replace(tmp_so, so)  # atomic: concurrent builders never see half a file
     return so, log
+
+
+def ptxas_usage(log: str) -> dict[str, tuple[int, int, int]]:
+    """Registers a thread, spill stores and spill loads (bytes) of every
+    kernel in a build log (``ptxas -v``), by name with its template
+    arguments, e.g. ``decode_split_kernel<4,1,0,1>`` (bits, GQ, int8 bases,
+    paged) or ``flash_split_kernel<4>`` (GQ)."""
+    usage, cur, spill = {}, None, (0, 0)
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = re.search(r"\d([a-z][a-z_]*?_kernel)(I.*)?", m.group(1))
+            args = re.findall(r"L[ib](\d+)E", name.group(2) or "")
+            cur = name.group(1) + (f"<{','.join(args)}>" if args else "")
+            spill = (0, 0)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m and cur:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and cur:
+            usage[cur] = (int(m.group(1)), *spill)
+            cur = None
+    return usage
 
 
 @functools.lru_cache(maxsize=None)

@@ -37,22 +37,72 @@ from .. import cache as kvcache
 from . import _build
 
 TILE = 128          # tokens per thread block (csrc/attn_common.cuh kTile)
-BLOCKS_PER_SM = 16  # token splits aim at this many blocks per SM
+BLOCKS_PER_SM = 3   # token splits aim at this many blocks per SM: what a
+                    # block's shared memory lets fit at int2/int4, GQ <= 4
+MAX_TILES = 4       # tiles a split walks at most: rows of unequal length
+                    # (a paged batch) then end together
 GQ_SIZES = (1, 2, 4, 8)
 BND_LANES = 128     # width of an outlier boundary table
+STAGES = 2          # tiles in the ring of one block (csrc/decode.cu kStages)
+SMEM_MAX = 232448   # shared memory a block can have on an H100
 
 
-def splits(n_tokens: int, bh: int, device) -> tuple[int, int]:
-    """(number of token splits, tiles per split): enough blocks for about
-    BLOCKS_PER_SM per SM when BH rows alone are too few."""
+def splits(n_tokens: int, bh: int, sms: int, blocks_per_sm: float,
+           max_tiles: int | None = None) -> tuple[int, int]:
+    """(number of token splits, tiles per split) for ``bh`` rows of
+    ``n_tokens`` tokens on a card of ``sms`` SMs: split a row while the rows
+    alone give fewer than ``blocks_per_sm`` blocks per SM, or while a split
+    would walk more than ``max_tiles`` tiles; every split walks the same
+    number of tiles but the last."""
     n_tiles = -(-n_tokens // TILE)
     if n_tiles == 0:
         return 0, 1
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    want = max(1, -(-BLOCKS_PER_SM * sms // bh))
-    n_split = min(n_tiles, want)
-    per = -(-n_tiles // n_split)
+    want = max(1, int(blocks_per_sm * sms) // max(bh, 1))
+    per = -(-n_tiles // min(n_tiles, want))
+    if max_tiles is not None:
+        per = min(per, max_tiles)
     return -(-n_tiles // per), per
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def stage_bytes(d: int, bits: int, r: int, group: int, v_group: int,
+                ko: int, base8: bool) -> int:
+    """Bytes of one stage of the decode kernel's ring: everything one tile
+    of 128 tokens reads, each piece on 16 bytes (csrc/decode.cu
+    ``stage_layout``)."""
+    nbt, ngv, wd = TILE // group, d // v_group, d * bits // 32
+    bel = 1 if base8 else 2
+    sc = nbt * r * 4 if base8 else 0
+    bnd = nbt * BND_LANES * 4 if ko else 0
+    pieces = (wd * TILE * 4, wd * (TILE + 4) * 4,        # K, V code words
+              ngv * TILE * 2, ngv * TILE * 2,            # V scales, minima
+              r * TILE * bel, r * TILE * bel,            # kqt, vqt
+              nbt * d * 2, nbt * d * 2,                  # K scales, minima
+              nbt * r * d * bel, nbt * r * d * bel,      # kpt, vpt
+              sc, sc, sc, sc,                            # int8 base scales
+              nbt * (ko // 2) * 4, nbt * (ko // 2) * 4,  # outlier indices
+              nbt * ko * 2, nbt * ko * 2,                # outlier deltas
+              bnd, bnd)                                  # boundary tables
+    return sum((n + 15) // 16 * 16 for n in pieces)
+
+
+def decode_smem_bytes(gq: int, d: int, bits: int, r: int, group: int,
+                      v_group: int, ko: int, base8: bool,
+                      paged: bool) -> int:
+    """Shared memory of one block of the decode kernel: the ring of STAGES
+    stages, the float32 working buffers and, paged, the page lookups
+    (csrc/decode.cu ``split_smem_bytes``, which checks this count)."""
+    nbt, ngv = TILE // group, d // v_group
+    floats = (gq * d + nbt * gq * d + nbt * gq + nbt * gq * r + gq * TILE
+              + 2 * gq * 4 + gq * ngv * TILE + gq * ngv + gq * nbt * r)
+    if paged:
+        floats += 2 * STAGES * nbt
+    return (STAGES * stage_bytes(d, bits, r, group, v_group, ko, base8)
+            + 4 * floats)
 
 
 def check_operands(dev, expect: dict) -> None:
@@ -70,6 +120,14 @@ def check_operands(dev, expect: dict) -> None:
                              f"{tuple(shape)}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def check_aligned(tensors: dict) -> None:
+    """Raise unless every ``name: tensor`` starts on 16 bytes: the kernels
+    stage tiles with 16-byte asynchronous copies."""
+    for name, x in tensors.items():
+        if x is not None and x.data_ptr() % 16:
+            raise ValueError(f"{name} is not 16-byte aligned")
 
 
 def _ptr(x):
@@ -127,10 +185,11 @@ def _check_cache_leaves(dev, lead: tuple, nbs: int, ts: int, d: int,
         })
     check_operands(dev, {f: (leaves.get(f), dt, lead + shape)
                          for f, (dt, shape) in expect.items()})
+    check_aligned({f: leaves.get(f) for f in expect})
     if bits not in (2, 4, 8):
         raise ValueError(f"unsupported bits={bits}")
     group = ts // nbs
-    if d > TILE or TILE % group or d % v_group:
+    if d > TILE or d % 8 or TILE % group or d % v_group:
         raise ValueError(f"unsupported head_dim={d} / group={group} / "
                          f"v_group={v_group}")
     return base8, ko
@@ -218,12 +277,14 @@ def decode_attention(q, k_codes, k_scale, k_mn, kpt, kqt, v_codes, v_scale,
             and comp_len % group == 0):
         raise ValueError(f"bad lengths comp_len={comp_len} resid_len={resid_len}")
 
-    n_split, per = splits(comp_len, bh, dev)
+    n_split, per = splits(comp_len, bh, sm_count(dev), BLOCKS_PER_SM,
+                          MAX_TILES)
+    smem = decode_smem_bytes(gq, d, bits, r, group, v_group, ko, base8, False)
     out = _launch(
         f"gear_decode_attention_b{bits}", q, leaves, k_resid, v_resid,
         pad_start, None, None,
         (bh, hkv, gq, d, t, nb, r, group, v_group, int(base8), ko, out_pad,
-         comp_len, resid_len, n_split, per, 0, 0), n_split)
+         comp_len, resid_len, n_split, per, 0, 0, smem), n_split)
     decode_attention.launches += 1
     return out
 
@@ -373,12 +434,14 @@ def decode_attention_paged(lens, pad_start, block_table, q, kpt, k_codes,
     if not (0 <= max_comp_len <= t and max_comp_len % group == 0):
         raise ValueError(f"bad max_comp_len={max_comp_len}")
 
-    n_split, per = splits(max_comp_len, bh, dev)
+    n_split, per = splits(max_comp_len, bh, sm_count(dev), BLOCKS_PER_SM,
+                          MAX_TILES)
+    smem = decode_smem_bytes(gq, d, bits, r, group, v_group, ko, base8, True)
     out = _launch(
         f"gear_decode_attention_paged_b{bits}", q, leaves, k_resid, v_resid,
         pad_start, lens, block_table,
         (bh, hkv, gq, d, t, maxp * pb, r, group, v_group, int(base8), ko,
-         out_pad, max_comp_len, 0, n_split, per, maxp, pb), n_split)
+         out_pad, max_comp_len, 0, n_split, per, maxp, pb, smem), n_split)
     decode_attention_paged.launches += 1
     return out
 

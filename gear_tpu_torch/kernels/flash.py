@@ -12,7 +12,10 @@ CPU tensor it computes that plain version; on a CUDA tensor it launches the
 kernel through :func:`flash_decode`, or raises.
 
 Bound on the card: bytes. The K and V rows between ``pad_start`` and
-``length`` are read once (2 x 2 x D bytes per token and kv head).
+``length`` are read once (2 x 2 x D bytes per token and kv head). A block
+keeps its next K or V rows in flight while it computes (a ring of two
+half-tiles, ``csrc/flash.cu``); :func:`flash_decode` plans the token splits
+for ``BLOCKS_PER_SM`` such blocks on each SM.
 """
 from __future__ import annotations
 
@@ -20,6 +23,19 @@ import torch
 
 from . import _build
 from . import decode as _dec
+
+BLOCKS_PER_SM = 3   # token splits aim at this many blocks per SM: what a
+                    # block's ring of two half-tiles lets fit
+SLOTS = 2           # half-tiles (K or V rows of 128 tokens) in a block's ring
+ROW_PAD = 8         # bf16 of padding per staged row
+
+
+def flash_smem_bytes(gq: int, d: int) -> int:
+    """Shared memory of one block of the flash kernel: the ring of SLOTS
+    half-tiles of padded rows, q, p and the softmax scratch
+    (csrc/flash.cu ``flash_smem_bytes``, which checks this count)."""
+    return (SLOTS * _dec.TILE * (d + ROW_PAD) * 2 + gq * d * 4
+            + gq * _dec.TILE * 4 + 2 * gq * 4 * 4)
 
 
 def flash_decode(length: int, pad_start: torch.Tensor, q: torch.Tensor,
@@ -43,11 +59,12 @@ def flash_decode(length: int, pad_start: torch.Tensor, q: torch.Tensor,
         "v": (v, torch.bfloat16, (bh, t, d)),
         "pad_start": (pad_start, torch.int32, (bh,)),
     })
+    _dec.check_aligned({"k": k, "v": v})
     if gq not in _dec.GQ_SIZES or d > _dec.TILE or d % 8:
         raise ValueError(f"unsupported GQ={gq} / head_dim={d}")
     if not 0 <= length <= t:
         raise ValueError(f"length {length} outside the cache of {t} tokens")
-    n_split, per = _dec.splits(length, bh, dev)
+    n_split, per = _dec.splits(length, bh, _dec.sm_count(dev), BLOCKS_PER_SM)
     n_split = max(n_split, 1)
     part_acc = torch.empty((bh, n_split, gq, d), dtype=torch.float32,
                            device=dev)
@@ -58,7 +75,7 @@ def flash_decode(length: int, pad_start: torch.Tensor, q: torch.Tensor,
     err = lib.gear_flash_decode(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), pad_start.data_ptr(),
         part_acc.data_ptr(), part_ml.data_ptr(), out.data_ptr(),
-        bh, gq, d, t, length, n_split, per,
+        bh, gq, d, t, length, n_split, per, flash_smem_bytes(gq, d),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "gear_flash_decode")
     flash_decode.launches += 1

@@ -318,3 +318,87 @@ def test_paged_serving_on_the_card(cuda):
     agree = sum(a == b for r, rd in zip(rids, rids_d)
                 for a, b in zip(out[r], out_d[rd]))
     assert agree >= 0.9 * 75  # random-weight logits sit near ties
+
+
+# The kernels' tile pipelines at their edges: lengths that are not a
+# multiple of the 128-token tile, pad_start inside a tile, and blocks that
+# walk several tiles with an odd count or a short last split, forced by
+# BLOCKS_PER_SM (0: one split per row, the whole row in one block).
+@pytest.mark.parametrize("hkv,hq,length,pad,window,bps", [
+    (4, 4, 300, None, None, 0),             # 3 tiles, the last of 44 tokens
+    (2, 8, 640, [0, 130], None, 0),         # 5 tiles; pad inside tile 1
+    (2, 8, 1000, [200, 7], 300, 0.2),       # splits of 3, 3 and 2 tiles
+    (4, 4, 131, [130, 5], None, 0),         # a tile of 3 tokens
+    (1, 4, 1000, [0, 0], None, None),       # the planner's own splits
+])
+def test_flash_pipeline_edges(cuda, monkeypatch, hkv, hq, length, pad,
+                              window, bps):
+    if bps is not None:
+        monkeypatch.setattr(TF, "BLOCKS_PER_SM", bps)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    spec = TC.CacheSpec(batch=2, num_kv_heads=hkv, head_dim=128,
+                        max_len=1024)
+    k = torch.randn((2, hkv, 1024, 128), generator=gen, device=cuda).bfloat16()
+    v = torch.randn((2, hkv, 1024, 128), generator=gen, device=cuda).bfloat16()
+    c = llama.RawLayerCache(k=k, v=v, length=length)
+    q = torch.randn((2, hq, 1, 128), generator=gen, device=cuda)
+    pad_t = None if pad is None else torch.tensor(pad, dtype=torch.int32,
+                                                   device=cuda)
+    got = TF.raw_attend_flash(spec, c, q, pad_start=pad_t, window=window)
+    want = llama.raw_attend(spec, c, q, pad_start=pad_t, window=window)
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.parametrize("kw,n_prefill,pad,window,bps", [
+    (dict(), 300, None, None, 0),                       # 330: 3 tiles
+    (dict(outliers_per_block=162), 900, [0, 200], None, 0),  # 7 tiles
+    (dict(outliers_per_block=162, base_bits=8), 900, [70, 0], 500, 0.2),
+    (dict(bits=2), 600, [0, 129], None, 0.2),
+    (dict(base_bits=8, kcvt_prefill=True), 700, None, None, None),
+], ids=["gearl_3_tiles", "gear_7_tiles_pad", "gear_base8_window_splits",
+        "int2_pad_splits", "base8_kcvt_planned"])
+def test_decode_pipeline_edges(cuda, monkeypatch, kw, n_prefill, pad, window,
+                               bps):
+    if bps is not None:
+        monkeypatch.setattr(TK, "BLOCKS_PER_SM", bps)
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    spec = TC.CacheSpec(batch=2, num_kv_heads=4, head_dim=128, max_len=1024,
+                        **{"bits": 4, "group": 64, **kw})
+    k = torch.randn((2, 4, n_prefill, 128), generator=gen, device=cuda)
+    v = torch.randn((2, 4, n_prefill, 128), generator=gen, device=cuda)
+    cache = TC.prefill(spec, k.bfloat16(), v.bfloat16(), generator=gen)
+    for _ in range(30):  # crosses a flush, leaves a partly filled residual
+        kn = torch.randn((2, 4, 1, 128), generator=gen, device=cuda)
+        TC.append(spec, cache, kn.bfloat16(), (kn * 0.5).bfloat16(),
+                  generator=gen)
+    q = torch.randn((2, 4, 1, 128), generator=gen, device=cuda)
+    pad_t = None if pad is None else torch.tensor(pad, dtype=torch.int32,
+                                                   device=cuda)
+    got = TK.attend_fused(spec, cache, q, pad_start=pad_t, window=window)
+    want = TC.attend(spec, cache, q, pad_start=pad_t, window=window)
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.parametrize("kw,pb,pad,window,bps", [
+    (dict(), 1, None, None, 0),        # pages of 64: a tile spans two pages
+    (dict(outliers_per_block=162), 1, [0, 100, 0, 0], None, 0),
+    (dict(outliers_per_block=162, base_bits=8), 4, [0, 70, 0, 0], None, 0),
+    (dict(outliers_per_block=162, base_bits=8), 2, None, 300, 0.2),
+    (dict(bits=8), 4, [129, 0, 0, 0], None, 0.2),
+], ids=["pages_of_64", "gear_pad_in_tile", "gear_base8", "base8_window",
+        "int8_pad_splits"])
+def test_paged_pipeline_edges(cuda, monkeypatch, kw, pb, pad, window, bps):
+    """Rows of 670 and 270 tokens (5 and 2 tiles compressed), a row sharing
+    row 0's first page, the parked row."""
+    monkeypatch.setattr(TK, "BLOCKS_PER_SM", bps)
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    pspec, pool, seqs = build_paged(gen, kw, 4, pb)
+    q = torch.randn((seqs.batch, 4, 1, 128), generator=gen, device=cuda)
+    pad_t = None if pad is None else torch.tensor(pad, dtype=torch.int32,
+                                                   device=cuda)
+    got = TK.attend_paged(pspec, pool, seqs, q, pad_start=pad_t,
+                          window=window)
+    want = paged.attend_gathered(pspec, pool, seqs, q, pad_start=pad_t,
+                                 window=window)
+    assert torch.equal(got[-1], torch.zeros_like(got[-1]))  # the parked row
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-4)
