@@ -8,9 +8,11 @@ Phases, each printing lines of its own:
   2. the pack kernels against their plain versions (D=128, group 64, v_group
      64) at B=4, H=32, S=2048 with bits 2/4/8 and, at int4, at the shapes
      the end-to-end prefills below give them (Llama-2-7B: 128 rows of 1024
-     bf16 tokens; Mistral-7B: 16 rows of 4352 tokens, outliers replaced by
-     the block mean; a serving admission: 32 rows of 3008 tokens, cleaned
-     likewise): words, scales and minima must be bit-equal;
+     bf16 tokens, as float32 and, for the token pack, as the bf16 the GEARL
+     path hands it; Mistral-7B: 16 rows of 4352 tokens, outliers replaced
+     by the block mean, float32; a serving admission: 32 rows of 3008
+     tokens, cleaned likewise): words, scales and minima must be
+     bit-equal;
   3. the decode kernel against the plain ``cache.attend`` on full-width
      caches built by the port's own prefill + append across a flush: GEARL
      (bits 2/4/8, GQA 32/8 heads, left padding, a sliding window that cuts
@@ -101,6 +103,7 @@ class Timer:
     """
 
     SCRUB = "FillFunctor<unsigned char>"
+    PAD = 32  # zeroings of 4 KB before and after the calls
 
     def __init__(self, torch):
         self.torch = torch
@@ -115,19 +118,38 @@ class Timer:
 
         fn()
         torch.cuda.synchronize()
-        for _attempt in range(2):  # a trace can come back empty; retry once
+        # A trace can lose records, the first few of a profile among them
+        # (PERF.md): small zeroings, left out of the sum, pad the calls on
+        # both sides, and a trace is taken only if it holds a whole number
+        # of launches a call.
+        pad = self.scrub[:4096]
+        seen = []
+        for _attempt in range(4):
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(self.PAD):
+                    pad.zero_()
                 for _ in range(iters):
                     self.scrub.zero_()
                     fn()
+                for _ in range(self.PAD):
+                    pad.zero_()
                 torch.cuda.synchronize()
-            total_us = sum(
-                e.device_time_total for e in prof.key_averages()
-                if self.SCRUB not in e.key
-                and (names is None or any(n in e.key for n in names)))
-            if total_us > 0:
+            scrubs, launches, total_us = 0, 0, 0.0
+            for e in prof.key_averages():
+                if e.device_time_total <= 0:
+                    continue
+                if self.SCRUB in e.key:
+                    scrubs += e.count
+                elif names is None or any(n in e.key for n in names):
+                    launches += e.count
+                    total_us += e.device_time_total
+            if scrubs >= iters and launches and launches % iters == 0:
                 return total_us / iters / 1e3
-        raise RuntimeError("the profiler recorded no device time")
+            seen.append((scrubs - 2 * self.PAD, launches, sorted(
+                (e.key[:60], e.count) for e in prof.key_averages()
+                if e.device_time_total > 0)))
+        raise RuntimeError(f"the profiler recorded no whole trace of {iters} "
+                           f"calls: (zeroings, launches, records) {seen}")
 
 
 def check(cond: bool, what: str) -> None:
@@ -147,17 +169,21 @@ def cleaned_blocks(torch, x, hkv):
     return TC._extract_outliers(spec, x4)[0].reshape(n, s, d).contiguous()
 
 
-# (batch, kv heads, tokens, code widths, cleaned of outliers, the suffix of
-# the rows of the kernels' record this case fills)
+# (batch, kv heads, tokens, code widths, cleaned of outliers, input type,
+# the suffix of the rows of the kernels' record this case fills)
 PACK_CASES = [
-    (4, 32, 2048, (2, 4, 8), False, None),
-    # the Llama-2-7B path's prefill: batch 4, 32 kv heads, bucket 1024
-    (4, 32, 1024, (4,), False, ""),
+    (4, 32, 2048, (2, 4, 8), False, "float32", None),
+    # the Llama-2-7B path's prefill: batch 4, 32 kv heads, bucket 1024; the
+    # GEARL path hands the token pack its bf16 block (the channel pack, B2,
+    # takes float32)
+    (4, 32, 1024, (4,), False, "float32", ""),
+    (4, 32, 1024, (4,), False, "bfloat16", "_bf16"),
     # the Mistral-7B path's prefill: batch 2, 8 kv heads, bucket 4352, GEAR
-    (2, 8, 4352, (4,), True, "_gear"),
+    # (the cleaned block is float32)
+    (2, 8, 4352, (4,), True, "float32", "_gear"),
     # the serving path's admission prefill: one request, 32 kv heads, a
     # prompt near 3,000 tokens in its bucket of 3008, GEAR
-    (1, 32, 3008, (4,), True, "_serving"),
+    (1, 32, 3008, (4,), True, "float32", "_serving"),
 ]
 
 
@@ -166,13 +192,14 @@ def phase_pack(torch, timer, record):
 
     d, g = 128, 64
     gen = torch.Generator(device="cuda").manual_seed(1)
-    for batch, hkv, s, widths, cleaned, row in PACK_CASES:
+    for batch, hkv, s, widths, cleaned, dtype, row in PACK_CASES:
         n = batch * hkv
         x = torch.randn((n, s, d), generator=gen, device="cuda")
         if row is not None:  # the model hands over bf16 values
             x = x.bfloat16().float()
         if cleaned:
             x = cleaned_blocks(torch, x, hkv)
+        x = x.to(getattr(torch, dtype))
         for bits in widths:
             wd = d * bits // 32
             for kern, plain, kw, side in (
@@ -180,6 +207,8 @@ def phase_pack(torch, timer, record):
                      dict(v_group=g), n * s * (d // g)),
                     (TP.quant_pack_channels, TP.quant_pack_channels_plain,
                      dict(group=g), n * (s // g) * d)):
+                if dtype != "float32" and kern is TP.quant_pack_channels:
+                    continue  # B2 takes float32
                 got = kern(x, bits=bits, **kw)
                 want = plain(x, bits=bits, **kw)
                 torch.cuda.synchronize()
@@ -193,9 +222,10 @@ def phase_pack(torch, timer, record):
                     "token_kernel" if kern is TP.quant_pack_tokens
                     else "channel_kernel",))
                 plain_ms = timer(lambda: plain(x, bits=bits, **kw), iters=5)
-                nbytes = x.numel() * 4 + n * s * wd * 4 + 2 * side * 4
+                nbytes = (x.numel() * x.element_size() + n * s * wd * 4
+                          + 2 * side * 4)
                 bms, by = bound_ms(nbytes, 8 * x.numel())
-                log(f"pack {kern.__name__} bits={bits} [{n}x{s}x{d}]"
+                log(f"pack {kern.__name__} bits={bits} [{n}x{s}x{d}] {dtype}"
                     f"{' outlier-cleaned' if cleaned else ''} bit-equal "
                     f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
                     f"bound_ms={bms:.4f} ({by})")
@@ -215,6 +245,9 @@ MAIN_PATH_KERNELS = (
     ("B4 Llama-2-7B", "flash_split_kernel<1>"),
     ("B4 Mistral-7B", "flash_split_kernel<4>"),
     ("B5 serving", "decode_split_kernel<4,1,0,1>"),
+    ("B3 Llama-2-7B", "token_kernel<bf16,4,1>"),
+    ("B3 Mistral-7B and serving", "token_kernel<float,4,1>"),
+    ("B2", "channel_kernel"),
 )
 FLASH_KERNELS = ("flash_split_kernel", "attn_merge_kernel")
 
@@ -1185,7 +1218,7 @@ def main() -> int:
     usage = _build.ptxas_usage(build_log)
     spilled = sorted(k for k, (_, st, ld) in usage.items() if st or ld)
     log(f"ptxas: {len(usage)} kernels, spills in {len(spilled)}: {spilled}")
-    log("ptxas, the main paths' attention kernels (registers, spill stores "
+    log("ptxas, the main paths' kernels (registers, spill stores "
         "/ loads bytes): " + "; ".join(
             f"{role} {k}: {usage[k][0]} / {usage[k][1]} / {usage[k][2]}"
             for role, k in MAIN_PATH_KERNELS if k in usage))
@@ -1236,6 +1269,9 @@ def main() -> int:
          "gear_tpu_torch/csrc/pack.cu", "gear_tpu/kernels/pack.py:90",
          "llama", "fused"),
         ("quant_pack_tokens", "quant_pack_tokens",
+         "gear_tpu_torch/csrc/pack.cu", "gear_tpu/kernels/pack.py:67",
+         "llama", "fused"),
+        ("quant_pack_tokens_bf16", "quant_pack_tokens",
          "gear_tpu_torch/csrc/pack.cu", "gear_tpu/kernels/pack.py:67",
          "llama", "fused"),
         ("quant_pack_channels_gear", "quant_pack_channels",

@@ -521,13 +521,17 @@ def _compress_k_block_pk(spec: CacheSpec, k: torch.Tensor):
 
 def _compress_v_block_pk(spec: CacheSpec, v: torch.Tensor):
     """:func:`_compress_v_block` through the fused pack kernel
-    (``kernels.pack.quant_pack_tokens``)."""
+    (``kernels.pack.quant_pack_tokens``), which reads the block in the type
+    it has: the model's bf16 without outliers, the cleaned float32 block
+    with them."""
     from .kernels import pack as packk
 
     b, h, s_len, d = v.shape
     ngv = spec.v_groups_per_token
     v, o_idx, o_exact, o_dup = _take_outliers(spec, v)
-    xf = v.float().reshape(b * h, s_len, d).contiguous()
+    if v.dtype not in (torch.float32, torch.bfloat16):
+        v = v.float()
+    xf = v.reshape(b * h, s_len, d).contiguous()
     words, scale, mn = packk.quant_pack_tokens(xf, bits=spec.bits,
                                                v_group=spec.v_group)
     packed = words.reshape(b, h, s_len, spec.v_words).transpose(-1, -2)

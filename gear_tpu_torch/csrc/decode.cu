@@ -20,8 +20,8 @@
 // multiply-adds per stored element, far below the H100's ~295 operations per
 // byte.
 //
-// Design: every byte of a tile in flight at once, and the next tile's
-// while this one computes.
+// Design: every byte of a tile in flight at once, issued without holding
+// the threads, and the next tile's while this one computes.
 //  * grid (BH rows, 1 + token splits). Split 0 attends the residual tier;
 //    each other block walks its split's tiles of 128 tokens (one thread per
 //    token) below comp_len; tiles and quant blocks wholly left of pad_start
@@ -33,44 +33,68 @@
 //    int8 base scales, the outlier index words, deltas and boundary tables.
 //    One quant block's tokens are a run of G consecutive elements in every
 //    [rows, X, T] leaf, and its per-block rows are runs too, so the whole
-//    tile is a list of runs: the block's threads issue them as 16-byte
-//    cp.async copies (4-byte where a run is not a multiple of 16 bytes), one
-//    commit group per tile. Tile k + 2's group is issued as soon as tile k's
-//    math is done, so while a tile computes the next one is in flight; each
-//    tile then costs one wait (cp.async.wait_group 1) and one barrier where
-//    the simple form had some 15 dependent trips to device memory.
+//    tile is a list of runs, dealt to the lanes of one warp per kind of
+//    leaf. A run of 16-byte multiples is one bulk copy (cp.async.bulk, the
+//    copy engine of sm_90) that counts its bytes on the stage's mbarrier:
+//    the issuing thread goes on at once, where a thread issuing 16-byte
+//    cp.async pieces stalled while the card's memory streamed (measured:
+//    ~40% of a block on the Llama path). Other runs go as 4-byte cp.async
+//    pieces in the tile's commit group. Tile k + 2 is issued as soon as
+//    tile k's math is done; each tile costs one wait on its barrier and
+//    group and one block barrier.
 //  * Paged: warp 0 looks up the pages of tile k + 2's quant blocks at the
 //    start of tile k (lrow_s / loff_s, one slot per stage), so the table is
 //    off the critical path; the page of a block is then only the source
 //    address of its runs.
+//  * The prefill's P once (the TPU kernel's dual_region): cache.prefill
+//    replicates the prefill's P basis (and int8 scales) over its blocks, so
+//    a tile wholly inside the prefill (below prefill_len) stages no kpt /
+//    vpt rows; the block stages P0 once with its first tile, reduces q.P0
+//    once per query row, and keeps sum_t p * Q[r, t] over its prefill tiles
+//    as a running [GQ][R] state that the online softmax rescales with acc,
+//    applied to P0 once when the block stores its state. Tiles past the
+//    prefill (decode-flushed blocks) keep their own P per block.
 //  * K scores: per quant block the scale folds into q once
 //    (qs = q * scale), and q.mn and q.P_blk are reduced once (int8 bases:
 //    times both scales there), all from the stage; each thread then unpacks
 //    its token's code words from the stage and adds
-//    qs.code + q.mn + (q.P_blk).Q[:, t].
+//    qs.code + q.mn + (q.P).Q[:, t].
 //  * PV: p * vscale is formed per token, and sum p * vmn and sum p * Q[:, t]
 //    per block (int8: times both scales) are reduced once, so one thread per
 //    channel accumulates (p * vscale) * code per token plus a few per-tile
 //    terms. V code rows are padded to kTile + 4 words: the 8 words a warp
 //    reads at one token fall in 8 banks.
 //  * Outliers: the TPU kernel's one-hot dots and running-sum gathers stand
-//    in for a scatter it does not have. K entries are sorted by token, so
-//    the thread of token t walks its own segment bnd[t-1]+1 .. bnd[t] and
-//    adds q[d] * delta to its scores; V entries are sorted by channel, so
-//    the PV thread of channel d walks its segment and adds p[t] * delta.
-//    No atomics, a fixed order. The padding entries up to the stored count
-//    (idx 0, delta 0) are the last out_pad entries of token 0's / channel
-//    0's segment (the stable sort keeps them behind that key's real
-//    entries); those two threads stop before them.
+//    in for a scatter it does not have. The thread of token t (K entries
+//    are sorted by token) or of channel d (V, sorted by channel) sums its
+//    own segment bnd[t-1]+1 .. bnd[t] in entry order: no atomics. At
+//    GQ <= 2 every live entry's terms (q[g][d] * delta for K, p[g][t] *
+//    delta for V) are first formed in a fixed share a thread, into shared
+//    memory, so that the walk that segments of unequal length make
+//    divergent costs a load and an add a step; at GQ 4 and 8 that buffer
+//    would cost a block an SM, and the walking thread forms its terms
+//    itself (term_buffer below). The padding entries up to the stored
+//    count (idx 0, delta 0) are the last out_pad entries of token 0's /
+//    channel 0's segment (the stable sort keeps them behind that key's real
+//    entries); they are neither formed nor summed.
+//  * Residual tier (split 0): its K and V rows come in as one batch of
+//    16-byte cp.async copies into the first region, then scores and PV
+//    from shared memory (the simple form read them one dependent trip at a
+//    time: 24 us at 60 tokens on the Llama path's shapes).
 //  * Shared memory at D = 128, group 64, rank 4, 256 stored outliers: a
 //    stage is 22,656 / 30,976 / 47,616 bytes at int2 / int4 / int8 with bf16
-//    bases; with the float32 working buffers a block takes 43-121 KB
-//    (kernels/decode.py::decode_smem_bytes counts it, and this file checks
-//    the count), three blocks an SM at int2 / int4 with GQ <= 4, fewer
-//    otherwise; min_blocks holds the registers to that.
+//    bases; with the prefill's P rows, the outlier terms (GQ <= 2) and the
+//    float32 working buffers (the K side's per-tile sums share their floats
+//    with the V side's) a block takes 55-123 KB (kernels/decode.py::
+//    decode_smem_bytes counts it, and this file checks the count), three
+//    blocks an SM at int2 / int4 with GQ <= 4, fewer otherwise; min_blocks
+//    holds the registers to that.
 //  * float32 throughout; online softmax with -inf for masked tokens.
-// Faster forms (wgmma products, reading the shared prefill P once, one
-// score product over a KCVT prefill region) are later work.
+// No tensor-core products: with codes exact in bf16 and q in three bf16
+// pieces, building the mma.sync fragments cost about what the
+// multiply-adds saved at GQ 4, and their operands took the block to two
+// an SM (measured slower on the H100, PERF.md). Later work: one K scale over a
+// KCVT prefill (the TPU kernel's kcvt path).
 //
 // The paged form (-DGEAR_DECODE_PAGED=1) replaces the TPU kernel
 // gear_tpu/kernels/decode.py::decode_attention_paged (its inner `kernel`,
@@ -141,7 +165,7 @@ struct Params {
   const int32_t* block_table;  // paged: [B, MAXP], entries < 0 unallocated
   int hkv, d, t, nb, r, group, v_group, ko;  // nb: blocks of a sequence
   int out_pad;  // padding entries at the end of segment 0 of every block
-  int comp_len, resid_len;  // dense form (the paged form reads `lens`)
+  int comp_len, resid_len, prefill_len;  // dense form (paged: `lens`)
   int n_split, tiles_per_split;
   int maxp, pb;  // paged: table width, blocks per page
 };
@@ -193,6 +217,27 @@ __device__ __forceinline__ void warp_sums(float* v) {
   for (int o = 16; o > 0; o >>= 1) {
 #pragma unroll
     for (int u = 0; u < N; ++u) v[u] += __shfl_xor_sync(0xffffffffu, v[u], o);
+  }
+}
+
+// s[0 .. GQ) += o[0 .. GQ): one outlier entry's terms, 16 or 8 bytes a load.
+template <int GQ>
+__device__ __forceinline__ void add_terms(float* s, const float* o) {
+  if constexpr (GQ % 4 == 0) {
+#pragma unroll
+    for (int g = 0; g < GQ; g += 4) {
+      const float4 v = *reinterpret_cast<const float4*>(o + g);
+      s[g] += v.x;
+      s[g + 1] += v.y;
+      s[g + 2] += v.z;
+      s[g + 3] += v.w;
+    }
+  } else if constexpr (GQ == 2) {
+    const float2 v = *reinterpret_cast<const float2*>(o);
+    s[0] += v.x;
+    s[1] += v.y;
+  } else {
+    s[0] += o[0];
   }
 }
 
@@ -258,8 +303,42 @@ __host__ __device__ inline Stage stage_layout(int d, int bits, int r,
   return s;
 }
 
-// Shared memory of one block: the ring, then float32 working buffers, then
-// the page lookups (kernels/decode.py::decode_smem_bytes counts the same).
+// The first region of a block's shared memory: the ring of the compressed
+// splits, or the residual tier's K and V rows ([G][D] bf16 each) in split 0.
+__host__ __device__ inline int region_bytes(int d, int bits, int r,
+                                            int group, int v_group, int ko,
+                                            bool base8) {
+  const int ring =
+      kStages * stage_layout(d, bits, r, group, v_group, ko, base8).bytes;
+  const int resid = 2 * group * d * 2;
+  return ring > resid ? ring : resid;
+}
+
+// The prefill's shared P rows of K and V ([R][D] each, base type), after
+// the first region.
+__host__ __device__ inline int pre_bytes(int d, int r, bool base8) {
+  return (2 * r * d * (base8 ? 1 : 2) + 15) & ~15;
+}
+
+// The outlier terms go through shared memory (ot_s) where they cost no
+// block an SM: at GQ <= 2. At GQ 4 and 8 their 8-16 KB would cut the
+// blocks an SM from three to two (on the H100 the Mistral path's GQ 4 ran
+// 13% slower so), and each thread of a token or channel forms the terms of
+// its own segment as it walks it. On the serving run's live pool the
+// buffer takes 16% less time than that walk at GQ 1 (PERF.md).
+__host__ __device__ constexpr bool term_buffer(int gq) { return gq <= 2; }
+
+// Floats of the per-tile sums whose lives do not overlap: q.mn and q.P per
+// (block, row) from the K folds to the scores, then sum p * vmn and
+// sum p * Q per (row, block) from the PV folds to the PV.
+__host__ __device__ inline int sums_floats(int gq, int nbt, int ngv, int r) {
+  const int k = nbt * gq * (1 + r), v = gq * (ngv + nbt * r);
+  return k > v ? k : v;
+}
+
+// Shared memory of one block: the first region, the prefill's P rows, then
+// float32 working buffers, then the page lookups
+// (kernels/decode.py::decode_smem_bytes counts the same).
 size_t split_smem_bytes(int gq, int d, int bits, int r, int group,
                         int v_group, int ko, bool base8, bool paged) {
   const int nbt = kTile / group;
@@ -269,15 +348,15 @@ size_t split_smem_bytes(int gq, int d, int bits, int r, int group,
   floats += nbt * gq * d;           // qs_s
   floats += gq * ngv * kTile;       // pvs_s
   floats += gq * kTile;             // p_s
-  floats += nbt * gq;               // qm_s
-  floats += nbt * gq * r;           // qp_s
+  if (term_buffer(gq)) floats += nbt * ko * gq;  // ot_s
+  floats += sums_floats(gq, nbt, ngv, r);  // qm_s, qp_s | pvm_s, wv_s
   floats += 2 * gq * kWarps;        // red_max, red_sum
-  floats += gq * ngv;               // pvm_s
-  floats += gq * nbt * r;           // wv_s
+  floats += 2 * gq * r;             // qp0_s, wv0_s
+  if (base8) floats += 4 * r;       // pre_sc: the prefill's int8 scales
   if (paged) floats += 2 * kStages * nbt;  // lrow_s, loff_s (int32)
-  return static_cast<size_t>(kStages) *
-             stage_layout(d, bits, r, group, v_group, ko, base8).bytes +
-         floats * sizeof(float);
+  return static_cast<size_t>(
+             region_bytes(d, bits, r, group, v_group, ko, base8)) +
+         pre_bytes(d, r, base8) + 8 * kStages + floats * sizeof(float);
 }
 
 // Blocks per SM that the register budget is held to (65,536 / (128 x n)
@@ -289,16 +368,47 @@ constexpr int min_blocks(int bits, int gq) {
   return bits == 8 || gq == 8 ? 2 : 3;
 }
 
-// One asynchronous copy of 16 or 4 bytes (every run of the stage starts at
-// a multiple of its own size from a leaf aligned to 16 bytes, so a run whose
-// size is a multiple of 16 is copied in 16-byte pieces, others in 4-byte
-// ones).
-__device__ __forceinline__ void copy_piece(char* dst, const char* src,
-                                           int bytes) {
-  if (bytes == 16)
-    cp_async16(dst, src);
-  else
-    cp_async4(dst, src);
+// Bulk copies (the copy engine of sm_90): one instruction moves a run of
+// 16-byte multiples from device memory into shared memory and counts its
+// bytes on an mbarrier in shared memory; the issuing thread goes on at once.
+__device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// One arrival that also announces the bytes the phase's bulk copies bring.
+__device__ __forceinline__ void bar_expect(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// Wait until the barrier's phase of this parity has completed; a phase
+// that never completes (bytes announced that no copy brings) traps rather
+// than holding the card.
+__device__ __forceinline__ void bar_wait(uint32_t bar, int parity) {
+  for (uint32_t spins = 0;; ++spins) {
+    uint32_t done;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (spins == (1u << 22)) __trap();
+  }
 }
 
 template <int BITS, int GQ, bool BASE8, bool PAGED>
@@ -327,25 +437,40 @@ decode_split_kernel(Params p) {
   const int NS = p.n_split + 1;
   const Stage L = stage_layout(D, BITS, R, G, p.v_group, KO, BASE8);
 
+  // the prefill's P rows of K and V, [2][R][D] in the base type
+  char* pre_p = smem + region_bytes(D, BITS, R, G, p.v_group, KO, BASE8);
   // working buffers; those read as float4 first, each a multiple of four
   // floats, so that they start on 16 bytes
-  float* q_s = reinterpret_cast<float*>(smem + kStages * L.bytes);
+  // one mbarrier a stage, which the stage's bulk copies count their bytes on
+  uint64_t* bars = reinterpret_cast<uint64_t*>(pre_p + pre_bytes(D, R, BASE8));
+  float* q_s = reinterpret_cast<float*>(bars + kStages);
   float* qs_s = q_s + GQ * D;
   float* pvs_s = qs_s + NBT * GQ * D;
   float* p_s = pvs_s + GQ * NGV * kTile;
-  float* qm_s = p_s + GQ * kTile;
+  // the terms of the tile's outlier entries, [NBT][KO][GQ]: q[g][d] * delta
+  // for K (until the scores), p[g][t] * delta for V (after the softmax)
+  constexpr bool kTerms = term_buffer(GQ);
+  float* ot_s = p_s + GQ * kTile;
+  // the per-tile sums: the K side's until the scores, then the V side's
+  float* qm_s = ot_s + (kTerms ? NBT * KO * GQ : 0);
   float* qp_s = qm_s + NBT * GQ;
-  float* red_max = qp_s + NBT * GQ * R;
-  float* red_sum = red_max + GQ * kWarps;
-  float* pvm_s = red_sum + GQ * kWarps;
+  float* pvm_s = qm_s;
   float* wv_s = pvm_s + GQ * NGV;
+  float* red_max = qm_s + sums_floats(GQ, NBT, NGV, R);
+  float* red_sum = red_max + GQ * kWarps;
+  float* qp0_s = red_sum + GQ * kWarps;  // q . P of the prefill, [GQ][R]
+  float* wv0_s = qp0_s + GQ * R;       // running sum_t p * Q[r, t] over the
+                                       // prefill's tiles, [GQ][R]
+  float* pre_sc = wv0_s + GQ * R;      // the prefill's int8 scales [4][R]:
+                                       // kpt, kqt, vpt, vqt (int8 bases)
   // paged: leaf row (page * hkv + head) and block offset in the page of
   // each quant block of the tile in each stage, [kStages][NBT]
-  int32_t* lrow_s = reinterpret_cast<int32_t*>(wv_s + GQ * NBT * R);
+  int32_t* lrow_s = reinterpret_cast<int32_t*>(pre_sc + (BASE8 ? 4 * R : 0));
   int32_t* loff_s = lrow_s + kStages * NBT;
 
   for (int i = tid; i < GQ * D; i += kTile)
     q_s[i] = p.q[static_cast<size_t>(bh) * GQ * D + i];
+  for (int i = tid; i < GQ * R; i += kTile) wv0_s[i] = 0.0f;
 
   float m_run[GQ], l_run[GQ], acc[GQ], alpha[GQ], s[GQ];
 #pragma unroll
@@ -354,6 +479,9 @@ decode_split_kernel(Params p) {
     l_run[g] = 0.0f;
     acc[g] = 0.0f;
   }
+
+  // an outlier index is t * D + d: shifts where D is a power of two
+  const int dsh = (D & (D - 1)) == 0 ? __ffs(D) - 1 : -1;
 
   // This thread's channel in the PV phase.
   const bool has_d = tid < D;
@@ -377,12 +505,15 @@ decode_split_kernel(Params p) {
     const int tile_hi =
         min(ntiles, csplit * p.tiles_per_split + p.tiles_per_split);
     const int n_t = max(0, tile_hi - tile_lo);
+    const int prefill_len = PAGED ? p.lens[seq * 3 + 2] : p.prefill_len;
 
     // The block's k-th tile: first token, valid tokens (a multiple of the
     // group: comp_len is), live quant blocks [jlo, nbl) (those wholly left
-    // of the padding are neither copied nor read).
+    // of the padding are neither copied nor read), and whether it lies
+    // wholly inside the prefill, whose blocks all hold the one P.
     struct Geo {
       int t0, n_valid, jlo, nbl;
+      bool pre;
     };
     auto geo = [&](int k) {
       Geo t;
@@ -390,8 +521,11 @@ decode_split_kernel(Params p) {
       t.n_valid = min(kTile, comp_len - t.t0);
       t.nbl = t.n_valid / G;
       t.jlo = pad > t.t0 ? (pad - t.t0) / G : 0;
+      t.pre = R > 0 && t.t0 + t.n_valid <= prefill_len;
       return t;
     };
+    // the prefill's tiles come first: the block has some if its first is
+    const bool has_pre = n_t > 0 && geo(0).pre;
     // Lane `lane` of warp 0 looks up the page of the k-th tile's quant
     // block `lane`: its leaf row (page * hkv + head) and block offset in the
     // page, which go to lookup slot k % kStages.
@@ -440,69 +574,127 @@ decode_split_kernel(Params p) {
           else
             return (static_cast<size_t>(bh) * R + rr) * NB + blk0 + j;
         };
-        // [X][row] token pieces of a [rows, X, TS] leaf of el-byte elements:
-        // per live block, X runs of G * el bytes (a power of two, as G is)
+        const uint32_t bar = smem_addr(bars + k % kStages);
+        // One run of `bytes` (a multiple of 4) by this thread: a bulk copy
+        // when it is a multiple of 16 bytes, else 4-byte cp.async pieces
+        // (the tile's commit group).
+        auto copy_run = [&](char* to, const char* from, int bytes) {
+          if ((bytes & 15) == 0) {
+            bulk_copy(to, from, bytes, bar);
+          } else {
+            for (int c = 0; c < bytes; c += 4) cp_async4(to + c, from + c);
+          }
+        };
+        auto bulk = [](int bytes) { return (bytes & 15) ? 0 : bytes; };
+        // The runs of a [rows, X, TS] leaf of el-byte elements, a lane each
+        // in turn: per live block, X runs of G * el bytes, into [X][row].
         auto tok_runs = [&](int off, int row, const void* src, int X,
                             int el) {
-          const int bytes = G * el;
-          const int cs = (bytes & 15) ? 4 : 16;  // bytes a copy
-          const int lp = __ffs(bytes / cs) - 1;  // log2 of copies a run
-          for (int j = jlo; j < tg.nbl; ++j) {
-            const char* from =
-                static_cast<const char*>(src) + run_at(X, j) * el;
-            char* to = S + off + j * bytes;
-            for (int i = tid; i < X << lp; i += kTile) {
-              const int x = i >> lp, c = (i & ((1 << lp) - 1)) * cs;
-              copy_piece(to + x * row * el + c,
-                         from + static_cast<size_t>(x) * TS * el + c, cs);
+          for (int r = lane; r < X * nb; r += 32) {
+            const int jj = r / X, x = r - jj * X, j = jlo + jj;
+            copy_run(S + off + (x * row + j * G) * el,
+                     static_cast<const char*>(src) +
+                         (run_at(X, j) + static_cast<size_t>(x) * TS) * el,
+                     G * el);
+          }
+        };
+        // The per-block leaves [rows, NBS, bytes] a tile reads, by id:
+        // scales and minima, the P rows and their int8 scales (not in a
+        // prefill tile), the outlier tables.
+        auto blk_leaf = [&](int id, int& off, const void*& src,
+                            int& bytes) -> bool {
+          const bool rows = !tg.pre, sc8 = BASE8 && !tg.pre, outl = KO > 0;
+          switch (id) {
+            case 0: off = L.ksc; src = p.k_scale; bytes = D * 2; return true;
+            case 1: off = L.kmn; src = p.k_mn; bytes = D * 2; return true;
+            case 2: off = L.kp; src = p.kpt; bytes = R * D * BEL; return rows;
+            case 3: off = L.vp; src = p.vpt; bytes = R * D * BEL; return rows;
+            case 4: off = L.kps; src = p.kpt_scale; bytes = R * 4; return sc8;
+            case 5: off = L.vps; src = p.vpt_scale; bytes = R * 4; return sc8;
+            case 6: off = L.koi; src = p.k_out_idx; bytes = KOH * 4; return outl;
+            case 7: off = L.voi; src = p.v_out_idx; bytes = KOH * 4; return outl;
+            case 8: off = L.kov; src = p.k_out_val; bytes = KO * 2; return outl;
+            case 9: off = L.vov; src = p.v_out_val; bytes = KO * 2; return outl;
+            case 10: off = L.kob; src = p.k_out_bnd; bytes = kBnd * 4; return outl;
+            default: off = L.vob; src = p.v_out_bnd; bytes = kBnd * 4; return outl;
+          }
+        };
+        constexpr int kLeaves = 12;
+        // the prefill's P rows and int8 scales come with tile 0, once, from
+        // its first block (every prefill block holds the same)
+        const bool pre0 = k == 0 && tg.pre;
+        size_t b0 = static_cast<size_t>(bh) * NB;
+        if constexpr (PAGED)
+          b0 = (static_cast<size_t>(max(p.block_table[seq * p.maxp], 0)) *
+                    p.hkv + bh % p.hkv) * NBS;
+        const int pb = R * D * BEL;
+        if (tid == 0) {  // the bytes of the tile's bulk copies
+          int tx = 2 * WD * bulk(G * 4) + 2 * NGV * bulk(G * 2) +
+                   2 * R * bulk(G * BEL);
+          for (int id = 0; id < kLeaves; ++id) {
+            int off, bytes;
+            const void* src;
+            if (blk_leaf(id, off, src, bytes)) tx += bulk(bytes);
+          }
+          tx = tx * nb + (pre0 ? 2 * bulk(pb) : 0);
+          bar_expect(bar, tx);
+        }
+        // the stage was last read through the generic proxy
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        if (warp == 0) {
+          tok_runs(L.kc, kTile, p.k_codes, WD, 4);
+        } else if (warp == 1) {
+          tok_runs(L.vc, kVws, p.v_codes, WD, 4);
+        } else if (warp == 2) {
+          tok_runs(L.vs, kTile, p.v_scale, NGV, 2);
+          tok_runs(L.vm, kTile, p.v_mn, NGV, 2);
+          tok_runs(L.kq, kTile, p.kqt, R, BEL);
+          tok_runs(L.vq, kTile, p.vqt, R, BEL);
+          if (pre0 && lane < 2)
+            copy_run(pre_p + lane * pb,
+                     static_cast<const char*>(lane ? p.vpt : p.kpt) + b0 * pb,
+                     pb);
+          if constexpr (BASE8) {
+            // kpt / vpt scales [rows, NBS, R], kqt / vqt [rows, R, NBS]
+            const size_t rows = b0 / NBS;
+            for (int rr = lane; pre0 && rr < R; rr += 32) {
+              cp_async4(pre_sc + rr, p.kpt_scale + b0 * R + rr);
+              cp_async4(pre_sc + R + rr, p.kqt_scale + (rows * R + rr) * NBS);
+              cp_async4(pre_sc + 2 * R + rr, p.vpt_scale + b0 * R + rr);
+              cp_async4(pre_sc + 3 * R + rr,
+                        p.vqt_scale + (rows * R + rr) * NBS);
             }
           }
-        };
-        // [NBT][bytes] per-block pieces of a [rows, NBS, ...] leaf
-        auto blk_runs = [&](int off, const void* src, int bytes) {
-          const int cs = (bytes & 15) ? 4 : 16;
-          for (int j = jlo; j < tg.nbl; ++j) {
-            const char* from = static_cast<const char*>(src) + blk_at(j) * bytes;
-            char* to = S + off + j * bytes;
-            for (int c = tid * cs; c < bytes; c += kTile * cs)
-              copy_piece(to + c, from + c, cs);
+        } else {
+          for (int r = lane; r < kLeaves * nb; r += 32) {
+            const int id = r / nb, j = jlo + r - id * nb;
+            int off, bytes;
+            const void* src;
+            if (blk_leaf(id, off, src, bytes))
+              copy_run(S + off + j * bytes,
+                       static_cast<const char*>(src) + blk_at(j) * bytes,
+                       bytes);
           }
-        };
-        // [R][NBT] lanes of a [rows, R, NBS] f32 leaf
-        auto lane_runs = [&](int off, const float* src) {
-          for (int i = tid; i < R * nb; i += kTile) {
-            const int x = i / nb, j = jlo + i - x * nb;
-            cp_async4(S + off + (x * NBT + j) * 4, src + lane_at(x, j));
+          if constexpr (BASE8) {  // [R][NBT] lanes of [rows, R, NBS] leaves
+            for (int i = lane; !tg.pre && i < 2 * R * nb; i += 32) {
+              const int x = i / nb, j = jlo + i - x * nb;
+              const int rr = x < R ? x : x - R;
+              cp_async4(S + (x < R ? L.kqs : L.vqs) + (rr * NBT + j) * 4,
+                        (x < R ? p.kqt_scale : p.vqt_scale) + lane_at(rr, j));
+            }
           }
-        };
-        tok_runs(L.kc, kTile, p.k_codes, WD, 4);
-        tok_runs(L.vc, kVws, p.v_codes, WD, 4);
-        tok_runs(L.vs, kTile, p.v_scale, NGV, 2);
-        tok_runs(L.vm, kTile, p.v_mn, NGV, 2);
-        tok_runs(L.kq, kTile, p.kqt, R, BEL);
-        tok_runs(L.vq, kTile, p.vqt, R, BEL);
-        blk_runs(L.ksc, p.k_scale, D * 2);
-        blk_runs(L.kmn, p.k_mn, D * 2);
-        blk_runs(L.kp, p.kpt, R * D * BEL);
-        blk_runs(L.vp, p.vpt, R * D * BEL);
-        if constexpr (BASE8) {
-          blk_runs(L.kps, p.kpt_scale, R * 4);
-          blk_runs(L.vps, p.vpt_scale, R * 4);
-          lane_runs(L.kqs, p.kqt_scale);
-          lane_runs(L.vqs, p.vqt_scale);
-        }
-        if (KO) {
-          blk_runs(L.koi, p.k_out_idx, KOH * 4);
-          blk_runs(L.voi, p.v_out_idx, KOH * 4);
-          blk_runs(L.kov, p.k_out_val, KO * 2);
-          blk_runs(L.vov, p.v_out_val, KO * 2);
-          blk_runs(L.kob, p.k_out_bnd, kBnd * 4);
-          blk_runs(L.vob, p.v_out_bnd, kBnd * 4);
         }
       }
       cp_async_commit();
     };
 
+    if (tid == 0) {
+      for (int i = 0; i < kStages; ++i)
+        asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                         smem_addr(bars + i))
+                     : "memory");
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
     if constexpr (PAGED) {
       if (warp == 0 && lane < NBT) {
         for (int k = 0; k < min(kStages, n_t); ++k) {
@@ -519,6 +711,8 @@ decode_split_kernel(Params p) {
       // groups issued: up to k + kStages - 1; at most kStages - 1 in flight
       // means tile k has landed (this thread's copies) ...
       cp_async_wait<kStages - 1>();
+      // ... and the bulk copies (the stage's k / kStages-th phase) ...
+      bar_wait(smem_addr(bars + k % kStages), (k / kStages) & 1);
       __syncthreads();  // ... everyone's; and stage (k - 1)'s readers are done
       // the pages of tile k + kStages: loaded now, stored after this tile's
       // math, so that the load's latency hides behind it
@@ -527,6 +721,8 @@ decode_split_kernel(Params p) {
       if (next) page_of(k + kStages, next_row, next_off);
       const Geo tg = geo(k);
       const int t0 = tg.t0, n_valid = tg.n_valid, jlo = tg.jlo, nbl = tg.nbl;
+      const bool pre = tg.pre;
+      const int RB = pre ? 0 : R;  // ranks of a per-block P
       const int tlo = jlo * G;
       const char* S = smem + (k % kStages) * L.bytes;
       const bf16* ksc = reinterpret_cast<const bf16*>(S + L.ksc);
@@ -547,11 +743,40 @@ decode_split_kernel(Params p) {
             qs_s[(j * GQ + g) * D + tid] = q_s[g * D + tid] * sc;
         }
       }
+      // K outliers, in a fixed share a thread (not per token, whose
+      // segments differ in length): every live entry's terms q[g][d] *
+      // delta, which each token's thread then sums over its segment
+      if (kTerms && KO) {
+        const int32_t* koi = reinterpret_cast<const int32_t*>(S + L.koi);
+        const bf16* kov = reinterpret_cast<const bf16*>(S + L.kov);
+        const int32_t* kob = reinterpret_cast<const int32_t*>(S + L.kob);
+        for (int j = jlo; j < nbl; ++j) {
+          const int pad_hi = kob[j * kBnd];  // the padding ends token 0's
+          for (int e = tid; e < KO; e += kTile) {
+            if (e > pad_hi - p.out_pad && e <= pad_hi) continue;
+            const int idx = out_idx(koi + j * KOH, e, KOH);
+            const int dd = dsh >= 0 ? idx & (D - 1) : idx % D;
+            const float delta = ld(kov + j * KO + e);
+            float* o = ot_s + (j * KO + e) * GQ;
+#pragma unroll
+            for (int g = 0; g < GQ; ++g) o[g] = q_s[g * D + dd] * delta;
+          }
+        }
+      }
       // q.mn (r = -1) and q.P_blk per (live block, query row): a warp per
-      // pair in turn, kSums of the sums reduced together.
+      // pair in turn, kSums of the sums reduced together. A prefill tile
+      // reduces q.mn alone: its q.P is q.P0, reduced once below.
       for (int jg = warp; jg < (nbl - jlo) * GQ; jg += kWarps) {
         const int j = jlo + jg / GQ, g = jg - (jg / GQ) * GQ;
-        for (int r0 = -1; r0 < R; r0 += kSums) {
+        if (RB == 0) {  // q.mn alone: one sum
+          float part = 0.0f;
+          for (int dd = lane; dd < D; dd += 32)
+            part += q_s[g * D + dd] * ld(kmn + j * D + dd);
+          part = warp_sum(part);
+          if (lane == 0) qm_s[j * GQ + g] = part;
+          continue;
+        }
+        for (int r0 = -1; r0 < RB; r0 += kSums) {
           float part[kSums];
 #pragma unroll
           for (int u = 0; u < kSums; ++u) part[u] = 0.0f;
@@ -562,7 +787,7 @@ decode_split_kernel(Params p) {
               const int rr = r0 + u;
               if (rr < 0)
                 part[u] += qv * ld(kmn + j * D + dd);
-              else if (rr < R)
+              else if (rr < RB)
                 part[u] += qv * ldb<BASE8>(S + L.kp, (j * R + rr) * D + dd);
             }
           }
@@ -573,11 +798,40 @@ decode_split_kernel(Params p) {
               const int rr = r0 + u;
               if (rr < 0) {
                 qm_s[j * GQ + g] = part[u];
-              } else if (rr < R) {
+              } else if (rr < RB) {
                 float v = part[u];
                 if constexpr (BASE8)  // both int8 scales of (block, rank)
                   v *= kps[j * R + rr] * kqs[rr * NBT + j];
                 qp_s[(j * GQ + g) * R + rr] = v;
+              }
+            }
+          }
+        }
+      }
+      // q.P0 per query row, once: the prefill's P rows landed with tile 0
+      if (k == 0 && has_pre) {
+        for (int g = warp; g < GQ; g += kWarps) {
+          for (int r0 = 0; r0 < R; r0 += kSums) {
+            float part[kSums];
+#pragma unroll
+            for (int u = 0; u < kSums; ++u) part[u] = 0.0f;
+            for (int dd = lane; dd < D; dd += 32) {
+              const float qv = q_s[g * D + dd];
+#pragma unroll
+              for (int u = 0; u < kSums; ++u)
+                if (r0 + u < R)
+                  part[u] += qv * ldb<BASE8>(pre_p, (r0 + u) * D + dd);
+            }
+            warp_sums<kSums>(part);
+            if (lane == 0) {
+#pragma unroll
+              for (int u = 0; u < kSums; ++u) {
+                const int rr = r0 + u;
+                if (rr < R) {
+                  float v = part[u];
+                  if constexpr (BASE8) v *= pre_sc[rr] * pre_sc[R + rr];
+                  qp0_s[g * R + rr] = v;
+                }
               }
             }
           }
@@ -612,24 +866,33 @@ decode_split_kernel(Params p) {
         }
 #pragma unroll
         for (int g = 0; g < GQ; ++g) s[g] += qm_s[j * GQ + g];
+        // (q.P) of the token's block: q.P0 in a prefill tile
+        const float* qpj = pre ? qp0_s : qp_s + j * GQ * R;
         for (int rr = 0; rr < R; ++rr) {
           const float kq = ldb<BASE8>(S + L.kq, rr * kTile + tid);
 #pragma unroll
-          for (int g = 0; g < GQ; ++g) s[g] += qp_s[(j * GQ + g) * R + rr] * kq;
+          for (int g = 0; g < GQ; ++g) s[g] += qpj[g * R + rr] * kq;
         }
-        if (KO) {  // this token's outlier segment: q[d] * delta
+        if (KO) {  // this token's outlier segment, in entry order
           const int32_t* kob = reinterpret_cast<const int32_t*>(S + L.kob);
-          const int32_t* koi = reinterpret_cast<const int32_t*>(S + L.koi);
-          const bf16* kov = reinterpret_cast<const bf16*>(S + L.kov);
           const int tl = tid - j * G;
           const int lo = tl ? kob[j * kBnd + tl - 1] + 1 : 0;
           const int hi =
               min(kob[j * kBnd + tl], KO - 1) - (tl ? 0 : p.out_pad);
-          for (int e = max(lo, 0); e <= hi; ++e) {
-            const int dd = out_idx(koi + j * KOH, e, KOH) % D;
-            const float delta = ld(kov + j * KO + e);
+          if constexpr (kTerms) {
+            const float* o = ot_s + j * KO * GQ;
+            for (int e = max(lo, 0); e <= hi; ++e)
+              add_terms<GQ>(s, o + e * GQ);
+          } else {  // q[d] * delta, entry by entry
+            const int32_t* koi = reinterpret_cast<const int32_t*>(S + L.koi);
+            const bf16* kov = reinterpret_cast<const bf16*>(S + L.kov);
+            for (int e = max(lo, 0); e <= hi; ++e) {
+              const int idx = out_idx(koi + j * KOH, e, KOH);
+              const int dd = dsh >= 0 ? idx & (D - 1) : idx % D;
+              const float delta = ld(kov + j * KO + e);
 #pragma unroll
-            for (int g = 0; g < GQ; ++g) s[g] += q_s[g * D + dd] * delta;
+              for (int g = 0; g < GQ; ++g) s[g] += q_s[g * D + dd] * delta;
+            }
           }
         }
       }
@@ -646,11 +909,35 @@ decode_split_kernel(Params p) {
         for (int gv = 0; gv < NGV; ++gv)
           pvs_s[(g * NGV + gv) * kTile + tid] =
               p_s[g * kTile + tid] * ld(vs + gv * kTile + tid);
+      // V outliers, in a fixed share a thread: every live entry's terms
+      // p[g][t] * delta, which each channel's thread then sums over its
+      // segment (the K terms in ot_s were read before the softmax)
+      if (kTerms && KO) {
+        const int32_t* voi = reinterpret_cast<const int32_t*>(S + L.voi);
+        const bf16* vov = reinterpret_cast<const bf16*>(S + L.vov);
+        const int32_t* vob = reinterpret_cast<const int32_t*>(S + L.vob);
+        for (int j = jlo; j < nbl; ++j) {
+          const int pad_hi = vob[j * kBnd];  // the padding ends channel 0's
+          for (int e = tid; e < KO; e += kTile) {
+            if (e > pad_hi - p.out_pad && e <= pad_hi) continue;
+            const int idx = out_idx(voi + j * KOH, e, KOH);
+            const int tl = min(dsh >= 0 ? idx >> dsh : idx / D, G - 1);
+            const float delta = ld(vov + j * KO + e);
+            float* o = ot_s + (j * KO + e) * GQ;
+#pragma unroll
+            for (int g = 0; g < GQ; ++g)
+              o[g] = p_s[g * kTile + j * G + tl] * delta;
+          }
+        }
+      }
       // per query row: the sums of p * vmn (j = -1) and, per live block j,
-      // of p * Q[r, t], a warp per (row, j) in turn, kSums reduced together
+      // of p * Q[r, t], a warp per (row, j) in turn, kSums reduced together;
+      // a prefill tile sums p * Q[r, t] over the whole tile (j = 0), for
+      // the running prefill term
       for (int it = warp; it < GQ * (1 + NBT); it += kWarps) {
         const int g = it / (1 + NBT), j = it - g * (1 + NBT) - 1;
         const float* pg = p_s + g * kTile;
+        const int jt0 = pre ? tlo : j * G, jt1 = pre ? n_valid : (j + 1) * G;
         if (j < 0) {
           for (int v0 = 0; v0 < NGV; v0 += kSums) {
             float part[kSums];
@@ -669,12 +956,12 @@ decode_split_kernel(Params p) {
                 if (v0 + u < NGV) pvm_s[g * NGV + v0 + u] = part[u];
             }
           }
-        } else if (j >= jlo && j < nbl) {
+        } else if (pre ? j == 0 : j >= jlo && j < nbl) {
           for (int r0 = 0; r0 < R; r0 += kSums) {
             float part[kSums];
 #pragma unroll
             for (int u = 0; u < kSums; ++u) part[u] = 0.0f;
-            for (int tt = j * G + lane; tt < (j + 1) * G; tt += 32) {
+            for (int tt = jt0 + lane; tt < jt1; tt += 32) {
               const float pv = pg[tt];
 #pragma unroll
               for (int u = 0; u < kSums; ++u)
@@ -686,7 +973,11 @@ decode_split_kernel(Params p) {
 #pragma unroll
               for (int u = 0; u < kSums; ++u) {
                 const int rr = r0 + u;
-                if (rr < R) {
+                if (rr < R && pre) {  // [GQ][R]; the P scale at the end
+                  float v = part[u];
+                  if constexpr (BASE8) v *= pre_sc[3 * R + rr];
+                  wv_s[g * R + rr] = v;
+                } else if (rr < R) {
                   float v = part[u];
                   if constexpr (BASE8) v *= vqs[rr * NBT + j] * vps[j * R + rr];
                   wv_s[(g * NBT + j) * R + rr] = v;
@@ -703,7 +994,7 @@ decode_split_kernel(Params p) {
 #pragma unroll
         for (int g = 0; g < GQ; ++g) {
           float a = acc[g] * alpha[g] + pvm_s[g * NGV + grp_me];
-          for (int i = jlo * R; i < nbl * R; ++i)
+          for (int i = jlo * RB; i < nbl * RB; ++i)
             a += wv_s[g * NBT * R + i] * ldb<BASE8>(S + L.vp, i * D + tid);
           acc[g] = a;
         }
@@ -726,23 +1017,39 @@ decode_split_kernel(Params p) {
                 *reinterpret_cast<const float4*>(pvs + g * NGV * kTile + tt),
                 c0, c1, c2, c3);
         }
-        if (KO) {  // this channel's outlier segments: p[t] * delta
+        if (KO) {  // this channel's outlier segments, in entry order
           const int32_t* vob = reinterpret_cast<const int32_t*>(S + L.vob);
-          const int32_t* voi = reinterpret_cast<const int32_t*>(S + L.voi);
-          const bf16* vov = reinterpret_cast<const bf16*>(S + L.vov);
           for (int j = jlo; j < nbl; ++j) {
             const int lo = tid ? vob[j * kBnd + tid - 1] + 1 : 0;
             const int hi =
                 min(vob[j * kBnd + tid], KO - 1) - (tid ? 0 : p.out_pad);
-            for (int e = max(lo, 0); e <= hi; ++e) {
-              const int tl = min(out_idx(voi + j * KOH, e, KOH) / D, G - 1);
-              const float delta = ld(vov + j * KO + e);
+            if constexpr (kTerms) {
+              const float* o = ot_s + j * KO * GQ;
+              for (int e = max(lo, 0); e <= hi; ++e)
+                add_terms<GQ>(acc, o + e * GQ);
+            } else {  // p[t] * delta, entry by entry
+              const int32_t* voi = reinterpret_cast<const int32_t*>(S + L.voi);
+              const bf16* vov = reinterpret_cast<const bf16*>(S + L.vov);
+              for (int e = max(lo, 0); e <= hi; ++e) {
+                const int idx = out_idx(voi + j * KOH, e, KOH);
+                const int tl = min(dsh >= 0 ? idx >> dsh : idx / D, G - 1);
+                const float delta = ld(vov + j * KO + e);
 #pragma unroll
-              for (int g = 0; g < GQ; ++g)
-                acc[g] += p_s[g * kTile + j * G + tl] * delta;
+                for (int g = 0; g < GQ; ++g)
+                  acc[g] += p_s[g * kTile + j * G + tl] * delta;
+              }
             }
           }
         }
+      }
+      // the running prefill term follows acc: rescaled every tile, and it
+      // takes a prefill tile's sum
+      if (has_pre && tid < GQ * R) {
+        float a = alpha[0];
+#pragma unroll
+        for (int g = 1; g < GQ; ++g)
+          if (tid / R == g) a = alpha[g];
+        wv0_s[tid] = wv0_s[tid] * a + (pre ? wv_s[tid] : 0.0f);
       }
       // lookup slot k % kStages: its last reader was issue(k)
       if (next) put_page(k + kStages, next_row, next_off);
@@ -750,25 +1057,55 @@ decode_split_kernel(Params p) {
       issue(k + kStages);
     }
     cp_async_wait<0>();  // no copy outlives the block
+    // the prefill's term: sum_r (sum_t p * Q[r, t]) * P0[r, d], once
+    if (has_pre && has_d) {
+      const char* pv = pre_p + R * D * BEL;
+#pragma unroll
+      for (int g = 0; g < GQ; ++g) {
+        for (int rr = 0; rr < R; ++rr) {
+          float w = wv0_s[g * R + rr];
+          if constexpr (BASE8) w *= pre_sc[2 * R + rr];
+          acc[g] += w * ldb<BASE8>(pv, rr * D + tid);
+        }
+      }
+    }
   } else {
-    // Residual tier: at most `group` <= kTile bf16 tokens. One warp per
-    // token for the scores (lanes over channels, coalesced), staged in p_s.
-    __syncthreads();  // q_s ready
+    // Residual tier: at most `group` <= kTile bf16 tokens. Its K and V rows
+    // ([resid_len][D] each, contiguous) come in as one batch of 16-byte
+    // asynchronous copies into the first region (the ring, which this
+    // split does not use); scores a warp per token, lanes over channel
+    // quads, and PV a thread per channel, from shared memory.
     const int n_valid = resid_len;
+    bf16* kr = reinterpret_cast<bf16*>(smem);
+    bf16* vr = kr + G * D;
+    const size_t row0 = static_cast<size_t>(bh) * G * D;
+    for (int i = tid; i < n_valid * D / 8; i += kTile) {
+      cp_async16(kr + 8 * i, p.k_resid + row0 + 8 * i);
+      cp_async16(vr + 8 * i, p.v_resid + row0 + 8 * i);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();  // q_s and the rows ready
     for (int tt = warp; tt < n_valid; tt += kWarps) {
-      const bf16* kr = p.k_resid + (static_cast<size_t>(bh) * G + tt) * D;
       float part[GQ];
 #pragma unroll
       for (int g = 0; g < GQ; ++g) part[g] = 0.0f;
-      for (int dd = lane; dd < D; dd += 32) {
-        const float kv = ld(kr + dd);
+      if (4 * lane < D) {
+        const uint2 k4 = *reinterpret_cast<const uint2*>(kr + tt * D + 4 * lane);
+        const float k0 = __uint_as_float(k4.x << 16);
+        const float k1 = __uint_as_float(k4.x & 0xFFFF0000u);
+        const float k2 = __uint_as_float(k4.y << 16);
+        const float k3 = __uint_as_float(k4.y & 0xFFFF0000u);
 #pragma unroll
-        for (int g = 0; g < GQ; ++g) part[g] += q_s[g * D + dd] * kv;
+        for (int g = 0; g < GQ; ++g)
+          part[g] = dot4<2>(0.0f,
+                            *reinterpret_cast<const float4*>(q_s + g * D + 4 * lane),
+                            k0, k1, k2, k3);
       }
+      warp_sums<GQ>(part);
+      if (lane == 0) {
 #pragma unroll
-      for (int g = 0; g < GQ; ++g) {
-        const float tot = warp_sum(part[g]);
-        if (lane == 0) p_s[g * kTile + tt] = tot;
+        for (int g = 0; g < GQ; ++g) p_s[g * kTile + tt] = part[g];
       }
     }
     __syncthreads();
@@ -778,9 +1115,19 @@ decode_split_kernel(Params p) {
     // (softmax_tile syncs before it overwrites p_s)
     softmax_tile<GQ>(s, valid, p_s, red_max, red_sum, m_run, l_run, alpha);
     if (has_d) {
-#pragma unroll 4
-      for (int tt = 0; tt < n_valid; ++tt) {
-        const float v = ld(p.v_resid + (static_cast<size_t>(bh) * G + tt) * D + tid);
+      int tt = 0;
+      for (; tt + 4 <= n_valid; tt += 4) {  // p of four tokens: one float4
+        const float v0 = ld(vr + tt * D + tid), v1 = ld(vr + (tt + 1) * D + tid);
+        const float v2 = ld(vr + (tt + 2) * D + tid);
+        const float v3 = ld(vr + (tt + 3) * D + tid);
+#pragma unroll
+        for (int g = 0; g < GQ; ++g)
+          acc[g] = dot4<2>(acc[g],
+                           *reinterpret_cast<const float4*>(p_s + g * kTile + tt),
+                           v0, v1, v2, v3);
+      }
+      for (; tt < n_valid; ++tt) {
+        const float v = ld(vr + tt * D + tid);
 #pragma unroll
         for (int g = 0; g < GQ; ++g) acc[g] += p_s[g * kTile + tt] * v;
       }
@@ -830,9 +1177,10 @@ cudaError_t launch_gq(const Params& p, int bh, int gq, size_t smem,
 #endif
 
 // One signature for both forms. Dense: lens and block_table are null, maxp
-// and pb 0, comp_len / resid_len the lengths all rows share. Paged: t and nb
-// are a sequence's capacity (MAXP * PB * group tokens, MAXP * PB blocks),
-// comp_len a host bound on every row's comp_len, resid_len unused. smem:
+// and pb 0, comp_len / resid_len / prefill_len the lengths all rows share.
+// Paged: t and nb are a sequence's capacity (MAXP * PB * group tokens,
+// MAXP * PB blocks), comp_len a host bound on every row's comp_len,
+// resid_len and prefill_len unused (each row's are in `lens`). smem:
 // the shared memory per block that kernels/decode.py planned; it must equal
 // this file's own count (a check that the two stay in step).
 extern "C" int GEAR_DECODE_ENTRY(
@@ -847,7 +1195,8 @@ extern "C" int GEAR_DECODE_ENTRY(
     const int32_t* lens, const int32_t* block_table,
     int bh, int hkv, int gq, int d, int t, int nb, int r, int group,
     int v_group, int base8, int ko, int out_pad, int comp_len, int resid_len,
-    int n_split, int tiles_per_split, int maxp, int pb, int smem,
+    int prefill_len, int n_split, int tiles_per_split, int maxp, int pb,
+    int smem,
     cudaStream_t stream) {
   if (kTile % group != 0 || d > kTile || d % 8 != 0 || group > kTile ||
       group % 4 != 0 || ko % 2 != 0 || out_pad < 0 || out_pad > ko)
@@ -856,7 +1205,7 @@ extern "C" int GEAR_DECODE_ENTRY(
   const void* leaves[] = {k_codes, k_scale, k_mn, kpt, kqt, v_codes, v_scale,
                           v_mn, vpt, vqt, kpt_scale, kqt_scale, vpt_scale,
                           vqt_scale, k_out_idx, k_out_val, k_out_bnd,
-                          v_out_idx, v_out_val, v_out_bnd};
+                          v_out_idx, v_out_val, v_out_bnd, k_resid, v_resid};
   for (const void* leaf : leaves)
     if (reinterpret_cast<uintptr_t>(leaf) & 15) return cudaErrorMisalignedAddress;
   if (kPaged && !(lens && block_table && maxp > 0 && pb > 0 &&
@@ -909,6 +1258,7 @@ extern "C" int GEAR_DECODE_ENTRY(
   p.out_pad = out_pad;
   p.comp_len = comp_len;
   p.resid_len = resid_len;
+  p.prefill_len = prefill_len;
   p.n_split = n_split;
   p.tiles_per_split = tiles_per_split;
   constexpr int kBits = GEAR_DECODE_BITS;

@@ -44,9 +44,9 @@ _I64 = ctypes.c_int64
 # argtypes of every C entry point (pointers and the stream as c_void_p, so
 # ctypes never truncates them to 32 bits).
 SIGNATURES = {
-    "gear_quant_pack_tokens": [_P, _P, _P, _P, _I64, _I, _I, _I, _P],
+    "gear_quant_pack_tokens": [_P, _I, _P, _P, _P, _I64, _I, _I, _I, _P],
     "gear_quant_pack_channels": [_P, _P, _P, _P, _I64, _I, _I, _I, _P],
-    **{f"gear_decode_attention{form}_b{b}": [_P] * 29 + [_I] * 19 + [_P]
+    **{f"gear_decode_attention{form}_b{b}": [_P] * 29 + [_I] * 20 + [_P]
        for b in DECODE_BITS for form in ("", "_paged")},
     "gear_flash_decode": [_P] * 7 + [_I] * 8 + [_P],
 }
@@ -111,17 +111,42 @@ def build() -> tuple[Path, str]:
     return so, log
 
 
+_TYPES = {"f": "float", "13__nv_bfloat16": "bf16"}
+
+
+def _template_args(mangled: str) -> list[str]:
+    """The template arguments of a mangled kernel name after its ``I``:
+    integer and bool literals (``Li4E``, ``Lb0E``) as their values, the
+    input types of the pack kernel (``f``, ``13__nv_bfloat16``) by name."""
+    args, i = [], 1
+    while i < len(mangled) and mangled[i] != "E":
+        if mangled[i] == "L":
+            end = mangled.index("E", i)
+            args.append(mangled[i + 2:end])
+            i = end + 1
+        elif mangled[i].isdigit():
+            n = re.match(r"\d+", mangled[i:]).group()
+            key = n + mangled[i + len(n):i + len(n) + int(n)]
+            args.append(_TYPES.get(key, key[len(n):]))
+            i += len(key)
+        else:
+            args.append(_TYPES.get(mangled[i], mangled[i]))
+            i += 1
+    return args
+
+
 def ptxas_usage(log: str) -> dict[str, tuple[int, int, int]]:
     """Registers a thread, spill stores and spill loads (bytes) of every
     kernel in a build log (``ptxas -v``), by name with its template
     arguments, e.g. ``decode_split_kernel<4,1,0,1>`` (bits, GQ, int8 bases,
-    paged) or ``flash_split_kernel<4>`` (GQ)."""
+    paged), ``flash_split_kernel<4>`` (GQ) or ``token_kernel<bf16,4,1>``
+    (input type, bits, groups on lane boundaries)."""
     usage, cur, spill = {}, None, (0, 0)
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
             name = re.search(r"\d([a-z][a-z_]*?_kernel)(I.*)?", m.group(1))
-            args = re.findall(r"L[ib](\d+)E", name.group(2) or "")
+            args = _template_args(name.group(2)) if name.group(2) else []
             cur = name.group(1) + (f"<{','.join(args)}>" if args else "")
             spill = (0, 0)
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)

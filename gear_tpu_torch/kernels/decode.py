@@ -24,10 +24,12 @@ bytes of entries and a 512-byte boundary table, int8 bases halve the base
 bytes and add four f32 scales per (block, rank). ``chip_smoke.py`` counts
 these from the call's shapes.
 
-The TPU kernel's ``kcvt`` and ``dual_region`` fast paths (one score product
-over the prefill region, whose K scale and P basis are shared by all its
-blocks) are speed, not semantics: a KCVT cache stores its whole-span scale
-replicated per block row, and the kernel reads it like any other.
+Like the TPU kernel's ``dual_region`` path, the kernel reads the prefill's
+P basis (replicated over the prefill's blocks by ``cache.prefill``) once
+per row for the tiles that lie wholly inside the prefill; the TPU kernel's
+``kcvt`` path (one K scale over the prefill) is not taken: a KCVT cache
+stores its whole-span scale replicated per block row, and the kernel reads
+it like any other.
 """
 from __future__ import annotations
 
@@ -45,6 +47,7 @@ GQ_SIZES = (1, 2, 4, 8)
 BND_LANES = 128     # width of an outlier boundary table
 STAGES = 2          # tiles in the ring of one block (csrc/decode.cu kStages)
 SMEM_MAX = 232448   # shared memory a block can have on an H100
+SM_SMEM = 233472    # shared memory of an SM on an H100
 
 
 def splits(n_tokens: int, bh: int, sms: int, blocks_per_sm: float,
@@ -90,19 +93,35 @@ def stage_bytes(d: int, bits: int, r: int, group: int, v_group: int,
     return sum((n + 15) // 16 * 16 for n in pieces)
 
 
+def blocks_per_sm(smem: int) -> int:
+    """Blocks of the decode kernel an SM holds at ``smem`` bytes each
+    (228 KB an SM, 1 KB of it reserved a block), at most BLOCKS_PER_SM."""
+    return min(BLOCKS_PER_SM, SM_SMEM // (smem + 1024))
+
+
 def decode_smem_bytes(gq: int, d: int, bits: int, r: int, group: int,
                       v_group: int, ko: int, base8: bool,
                       paged: bool) -> int:
     """Shared memory of one block of the decode kernel: the ring of STAGES
-    stages, the float32 working buffers and, paged, the page lookups
-    (csrc/decode.cu ``split_smem_bytes``, which checks this count)."""
+    stages (or, as large, the residual tier's K and V rows that split 0
+    stages there), the prefill's P rows of K and V, the float32 working
+    buffers and, paged, the page lookups (csrc/decode.cu
+    ``split_smem_bytes``, which checks this count)."""
     nbt, ngv = TILE // group, d // v_group
-    floats = (gq * d + nbt * gq * d + nbt * gq + nbt * gq * r + gq * TILE
-              + 2 * gq * 4 + gq * ngv * TILE + gq * ngv + gq * nbt * r)
+    # the per-tile sums of the K side and of the V side share their floats;
+    # the outlier terms' buffer only at GQ <= 2 (csrc/decode.cu
+    # ``term_buffer``), the int8 bases' prefill scales only with them
+    sums = max(nbt * gq * (1 + r), gq * (ngv + nbt * r))
+    floats = (gq * d + nbt * gq * d + gq * ngv * TILE + gq * TILE + sums
+              + 2 * gq * 4 + 2 * gq * r + (4 * r if base8 else 0)
+              + (nbt * ko * gq if gq <= 2 else 0))
     if paged:
         floats += 2 * STAGES * nbt
-    return (STAGES * stage_bytes(d, bits, r, group, v_group, ko, base8)
-            + 4 * floats)
+    region = max(STAGES * stage_bytes(d, bits, r, group, v_group, ko, base8),
+                 2 * group * d * 2)
+    pre = (2 * r * d * (1 if base8 else 2) + 15) // 16 * 16
+    bars = 8 * STAGES  # an mbarrier a stage
+    return region + pre + bars + 4 * floats
 
 
 def check_operands(dev, expect: dict) -> None:
@@ -230,8 +249,9 @@ def decode_attention(q, k_codes, k_scale, k_mn, kpt, kqt, v_codes, v_scale,
                      vpt_scale=None, k_out_idx=None, k_out_val=None,
                      v_out_idx=None, v_out_val=None, k_out_bnd=None,
                      v_out_bnd=None, out_pad: int = 0,
-                     comp_len: int, resid_len: int, hkv: int, bits: int,
-                     group: int, v_group: int) -> torch.Tensor:
+                     comp_len: int, resid_len: int, prefill_len: int,
+                     hkv: int, bits: int, group: int,
+                     v_group: int) -> torch.Tensor:
     """Launch the decode kernel.
 
     q [BH, GQ, D] f32 with sm_scale folded in (GQ in 1, 2, 4, 8);
@@ -245,7 +265,9 @@ def decode_attention(q, k_codes, k_scale, k_mn, kpt, kqt, v_codes, v_scale,
     k/v_out_bnd int32 [BH, NB, 128]; ``out_pad`` says how many of the KO
     stored entries of every block are padding (idx 0, delta 0, the last of
     token 0's and channel 0's segments, where ``cache._sort_outliers`` puts
-    them): the kernel does not walk them.
+    them): the kernel does not walk them. ``prefill_len``: the tokens of
+    the prefill block, whose quant blocks all hold one P basis (and int8
+    scales): the kernel reads it once per row for the tiles inside it.
     Returns the normalised output [BH, GQ, D] f32.
     """
     bh, gq, d = q.shape
@@ -274,17 +296,21 @@ def decode_attention(q, k_codes, k_scale, k_mn, kpt, kqt, v_codes, v_scale,
     if gq not in GQ_SIZES or bh % hkv:
         raise ValueError(f"unsupported GQ={gq} / hkv={hkv}")
     if not (0 <= comp_len <= t and 0 <= resid_len <= group
-            and comp_len % group == 0):
-        raise ValueError(f"bad lengths comp_len={comp_len} resid_len={resid_len}")
+            and comp_len % group == 0 and 0 <= prefill_len <= comp_len
+            and prefill_len % group == 0):
+        raise ValueError(f"bad lengths comp_len={comp_len} resid_len="
+                         f"{resid_len} prefill_len={prefill_len}")
+    check_aligned({"k_resid": k_resid, "v_resid": v_resid})
 
-    n_split, per = splits(comp_len, bh, sm_count(dev), BLOCKS_PER_SM,
-                          MAX_TILES)
     smem = decode_smem_bytes(gq, d, bits, r, group, v_group, ko, base8, False)
+    n_split, per = splits(comp_len, bh, sm_count(dev), blocks_per_sm(smem),
+                          MAX_TILES)
     out = _launch(
         f"gear_decode_attention_b{bits}", q, leaves, k_resid, v_resid,
         pad_start, None, None,
         (bh, hkv, gq, d, t, nb, r, group, v_group, int(base8), ko, out_pad,
-         comp_len, resid_len, n_split, per, 0, 0, smem), n_split)
+         comp_len, resid_len, prefill_len, n_split, per, 0, 0, smem),
+        n_split)
     decode_attention.launches += 1
     return out
 
@@ -368,7 +394,8 @@ def attend_fused(spec: kvcache.CacheSpec, cache: kvcache.LayerCache,
         flat(cache.v_codes), flat(cache.v_scale), flat(cache.v_mn),
         flat(cache.vqt), flat(cache.vpt), flat(cache.k_resid),
         flat(cache.v_resid), pad, **extra,
-        comp_len=cache.comp_len, resid_len=cache.resid_len, hkv=hkv,
+        comp_len=cache.comp_len, resid_len=cache.resid_len,
+        prefill_len=cache.prefill_len, hkv=hkv,
         bits=spec.bits, group=spec.group, v_group=spec.v_group)
     out = out.reshape(b, hkv, -1, d)[:, :, :gq_n]
     return out.reshape(b, hq, qn, d).to(q.dtype)
@@ -433,15 +460,17 @@ def decode_attention_paged(lens, pad_start, block_table, q, kpt, k_codes,
     t = maxp * pt
     if not (0 <= max_comp_len <= t and max_comp_len % group == 0):
         raise ValueError(f"bad max_comp_len={max_comp_len}")
+    check_aligned({"k_resid": k_resid, "v_resid": v_resid})
 
-    n_split, per = splits(max_comp_len, bh, sm_count(dev), BLOCKS_PER_SM,
-                          MAX_TILES)
     smem = decode_smem_bytes(gq, d, bits, r, group, v_group, ko, base8, True)
+    n_split, per = splits(max_comp_len, bh, sm_count(dev), blocks_per_sm(smem),
+                          MAX_TILES)
     out = _launch(
         f"gear_decode_attention_paged_b{bits}", q, leaves, k_resid, v_resid,
         pad_start, lens, block_table,
         (bh, hkv, gq, d, t, maxp * pb, r, group, v_group, int(base8), ko,
-         out_pad, max_comp_len, 0, n_split, per, maxp, pb, smem), n_split)
+         out_pad, max_comp_len, 0, 0, n_split, per, maxp, pb, smem),
+        n_split)
     decode_attention_paged.launches += 1
     return out
 

@@ -38,9 +38,11 @@ def quant_pack_channels_plain(x: torch.Tensor, *, bits: int, group: int):
     return words, scale.transpose(-1, -2), mn.transpose(-1, -2)
 
 
-def _check_common(x: torch.Tensor, bits: int) -> None:
-    if x.dtype != torch.float32:
-        raise TypeError(f"expected float32 input, got {x.dtype}")
+def _check_common(x: torch.Tensor, bits: int,
+                  dtypes=(torch.float32,)) -> None:
+    if x.dtype not in dtypes:
+        raise TypeError(f"expected {' or '.join(map(str, dtypes))} input, "
+                        f"got {x.dtype}")
     if not x.is_contiguous():
         raise ValueError("input must be contiguous")
     if bits not in (2, 4, 8):
@@ -50,23 +52,31 @@ def _check_common(x: torch.Tensor, bits: int) -> None:
 
 
 def quant_pack_tokens(x: torch.Tensor, *, bits: int, v_group: int):
-    """V-layout pack; see :func:`quant_pack_tokens_plain` for shapes."""
+    """V-layout pack; see :func:`quant_pack_tokens_plain` for shapes. The
+    kernel reads float32 or bf16 as it is given (bf16 -> float32 is exact,
+    so both give the same words and sidebands), head dims up to 128."""
     if x.device.type == "cpu":
         return quant_pack_tokens_plain(x, bits=bits, v_group=v_group)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    _check_common(x, bits)
+    _check_common(x, bits, (torch.float32, torch.bfloat16))
     *lead, d = x.shape
     if d % v_group:
         raise ValueError(f"head dim {d} not a multiple of v_group {v_group}")
+    if d > 128:
+        raise ValueError(f"head dim {d} > 128: a row is one warp of four "
+                         "channels a lane")
+    if x.data_ptr() % 16:
+        raise ValueError("input is not 16-byte aligned")
     m = x.numel() // d
     words = torch.empty((*lead, d * bits // 32), dtype=torch.int32, device=x.device)
     scale = torch.empty((*lead, d // v_group), dtype=torch.float32, device=x.device)
     mn = torch.empty_like(scale)
     lib = _build.library()
     err = lib.gear_quant_pack_tokens(
-        x.data_ptr(), words.data_ptr(), scale.data_ptr(), mn.data_ptr(),
-        m, d, bits, v_group, torch.cuda.current_stream(x.device).cuda_stream)
+        x.data_ptr(), int(x.dtype == torch.bfloat16), words.data_ptr(),
+        scale.data_ptr(), mn.data_ptr(), m, d, bits, v_group,
+        torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "gear_quant_pack_tokens")
     quant_pack_tokens.launches += 1
     return words, scale, mn

@@ -10,11 +10,11 @@ as ``gear_tpu_torch/_build/parent``). For each, in the order given and in a
 process of its own, the kernels are built from that tree's sources and
 timed with that tree's ``chip_smoke.py``: every case of ``phase_decode``
 (B1), two paged cases (B5: the serving path's shapes, and GEARL over rows of
-1,900 tokens and less), and every case of ``phase_flash`` (B4) with
-``scaled_dot_product_attention`` timed beside it in the same process. Per
-tree one line with the registers and spills (``ptxas -v``) of every
-``decode_split_kernel`` and ``flash_split_kernel`` instantiation, one with
-the device ms of each case. Give the trees in the order parent, change,
+1,900 tokens and less), every case of ``phase_flash`` (B4) with
+``scaled_dot_product_attention`` timed beside it in the same process, and
+every case of ``phase_pack`` (B2, B3). Per tree one line with the registers
+and spills (``ptxas -v``) of every kernel instantiation, one with the
+device ms of each case. Give the trees in the order parent, change,
 change, parent, so that drift of the card shows.
 """
 import json
@@ -75,8 +75,23 @@ if hasattr(cs, "paged_case"):
         res = cs.paged_case(torch, timer, gen, name, kw, 32, 32, 4, None,
                             None, **extra)
         rows[name] = round(res["ms"], 4)
+
+
+def pack_log(*parts):
+    ln = " ".join(str(p) for p in parts)
+    m = re.search(r"pack (\w+) bits=(\d) \[(\S+)\]( float32| bfloat16)?"
+                  r"( outlier-cleaned)? bit-equal kernel_ms=(\S+)", ln)
+    if m:
+        kern, bits, shape, dtype, cleaned, ms = m.groups()
+        name = (f"{kern} bits={bits} [{shape}] "
+                f"{(dtype or ' float32').strip()}{cleaned or ''}")
+        rows[name] = round(float(ms), 4)
+
+
 cs.log = flash_log
 cs.phase_flash(torch, timer, {})
+cs.log = pack_log
+cs.phase_pack(torch, timer, {})
 print("MS", json.dumps(rows))
 '''
 
@@ -93,8 +108,7 @@ def main() -> int:
             return 1
         log = "\n".join(ln[4:] for ln in out.stdout.splitlines()
                         if ln.startswith("LOG "))
-        usage = {k: v for k, v in _build.ptxas_usage(log).items()
-                 if re.match(r"(decode|flash)_split_kernel", k)}
+        usage = _build.ptxas_usage(log)
         print(tree, "REGS (registers, spill stores, spill loads):",
               json.dumps(usage), flush=True)
         for ln in out.stdout.splitlines():

@@ -46,6 +46,52 @@ def test_pack_kernels_bit_exact(cuda, bits):
             assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("bits,d,v_group", [
+    (4, 128, 64), (2, 128, 32), (8, 128, 128), (4, 64, 16), (2, 48, 12),
+    (4, 96, 24), (8, 36, 3), (4, 40, 40), (2, 16, 2), (8, 4, 1)])
+def test_token_pack_kernel_bit_exact(cuda, dtype, bits, d, v_group):
+    """B3 at either input type, head dims and V groups that are not powers
+    of two, and a row count that is not a multiple of the rows a block
+    takes (16 or 32): words, scales and minima equal the plain version's."""
+    gen = torch.Generator(device=cuda).manual_seed(bits * d + v_group)
+    x = torch.randn((3, 35, d), generator=gen, device=cuda).to(dtype)
+    x[0, 0, :v_group] = 0.75   # constant groups: the scale == 0 guard
+    x[2, 34, d - v_group:] = -2.0
+    before = TP.quant_pack_tokens.launches
+    got = TP.quant_pack_tokens(x, bits=bits, v_group=v_group)
+    want = TP.quant_pack_tokens_plain(x.float(), bits=bits, v_group=v_group)
+    assert TP.quant_pack_tokens.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_token_pack_kernel_at_half_steps(cuda, bits):
+    """B3 takes the code from the step's reciprocal and divides only near a
+    half-integer: values at (k + 1/2) steps above the group's minimum and
+    one ulp either side, over steps from 1 to the ends of the float range,
+    pack as the plain version's IEEE quotient does."""
+    levels, d, v_group = (1 << bits) - 1, 128, 64
+    inv = torch.tensor(1.0 / levels, dtype=torch.float32)
+    rows = []
+    for hi in (float(levels), 3.7, 1e-3, 1e-36, 1e31, 3e31):
+        step = torch.tensor(hi, dtype=torch.float32) * inv
+        k = torch.arange(v_group - 2, dtype=torch.float32) % levels
+        mid = (k + 0.5) * step
+        for x in (mid, torch.nextafter(mid, mid + step),
+                  torch.nextafter(mid, mid - step)):
+            group = torch.cat([torch.zeros(1), x.clamp(0.0, hi),
+                               torch.tensor([hi], dtype=torch.float32)])
+            rows.append(torch.cat([group, -group]))
+    x = torch.stack(rows).to(cuda)
+    got = TP.quant_pack_tokens(x, bits=bits, v_group=v_group)
+    want = TP.quant_pack_tokens_plain(x, bits=bits, v_group=v_group)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
 @pytest.mark.parametrize("bits,hkv,hq,pad", [
     (2, 4, 4, None), (4, 4, 4, [0, 100]), (8, 2, 8, [37, 0]),
 ])
@@ -136,6 +182,66 @@ def test_decode_kernel_full_recipe_matches_plain(cuda, name):
                              resid_len=cache.resid_len)
         off = TK.attend_fused(spec, bare, q, pad_start=pad_t, window=window)
         assert not torch.allclose(off, want, rtol=1e-3, atol=1e-4)
+
+
+# name: (spec kwargs, q heads over 4 kv heads, prompt, appended tokens,
+# pad_start, window, residual length set by hand or None)
+PREFILL_CASES = {
+    # 896 of 1088: tiles 0-6 wholly inside the prefill, 7-8 past it
+    "tiles_in_and_past": (dict(), 4, 900, 190, None, None, None),
+    # 960: tile 7 straddles the prefill's end (block 14 in, 15 past)
+    "tile_straddles": (dict(), 8, 960, 100, None, None, None),
+    "pad_into_prefill": (dict(), 16, 960, 100, [300, 0], None, None),
+    "window_into_prefill": (dict(outliers_per_block=162), 32, 960, 100,
+                            [0, 77], 400, None),
+    "resid_0": (dict(), 4, 640, 0, None, None, 0),
+    "resid_1": (dict(bits=2), 8, 640, 0, None, None, 1),
+    "resid_63": (dict(bits=8), 16, 640, 0, [5, 0], None, 63),
+    "resid_64": (dict(outliers_per_block=162), 32, 640, 0, None, None, 64),
+    "gq2_int8_bases": (dict(base_bits=8), 8, 900, 190, [0, 129], None, None),
+    "gq8_gear_int8_bases": (dict(base_bits=8, outliers_per_block=162), 32,
+                            900, 190, None, None, None),
+    "rank_0": (dict(rank=0, prefill_rank=0), 16, 900, 190, None, None, None),
+    "gq4_int2_gear": (dict(bits=2, outliers_per_block=162), 16, 900, 190,
+                      None, None, None),
+    "ties_gear": (dict(outliers_per_block=162), 16, 900, 190, None, None,
+                  None),
+}
+
+
+@pytest.mark.parametrize("name", list(PREFILL_CASES))
+def test_decode_kernel_prefill_region(cuda, name):
+    """B1 reads the prefill's one P basis for the tiles wholly inside the
+    prefill and each block's own past it; each token's and channel's
+    outlier segment, ties included; the residual tier staged in one batch,
+    at every length it can have."""
+    kw, hq, n_prefill, n_append, pad, window, resid = PREFILL_CASES[name]
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    hkv, d = 4, 128
+    spec = TC.CacheSpec(batch=2, num_kv_heads=hkv, head_dim=d, max_len=1152,
+                        **{"bits": 4, "group": 64, "rank": 2,
+                           "prefill_rank": 4, **kw})
+    k = torch.randn((2, hkv, n_prefill, d), generator=gen, device=cuda)
+    v = torch.randn((2, hkv, n_prefill, d), generator=gen, device=cuda)
+    if name == "ties_gear":  # a coarse grid: outlier candidates tie
+        k, v = (k * 2).round() / 2, (v * 2).round() / 2
+    cache = TC.prefill(spec, k.bfloat16(), v.bfloat16(), generator=gen)
+    for _ in range(n_append):
+        kn = torch.randn((2, hkv, 1, d), generator=gen, device=cuda)
+        TC.append(spec, cache, kn.bfloat16(), (kn * 0.5).bfloat16(),
+                  generator=gen)
+    if resid is not None:  # a residual tier of this length, by hand
+        cache.k_resid.copy_(torch.randn(cache.k_resid.shape, generator=gen,
+                                        device=cuda).bfloat16())
+        cache.v_resid.copy_(torch.randn(cache.v_resid.shape, generator=gen,
+                                        device=cuda).bfloat16())
+        cache.resid_len = resid
+    q = torch.randn((2, hq, 1, d), generator=gen, device=cuda)
+    pad_t = None if pad is None else torch.tensor(pad, dtype=torch.int32,
+                                                   device=cuda)
+    got = TK.attend_fused(spec, cache, q, pad_start=pad_t, window=window)
+    want = TC.attend(spec, cache, q, pad_start=pad_t, window=window)
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-4)
 
 
 @pytest.mark.parametrize("hkv,hq,length,pad,window", [

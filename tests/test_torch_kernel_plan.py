@@ -111,9 +111,57 @@ def test_decode_stage_holds_the_tile():
         codes + side + bases + outl)
 
 
+@pytest.mark.parametrize("gq,bits,ko,bps", [
+    (1, 4, 0, 3),     # Llama-2-7B GEARL
+    (1, 4, 256, 3),   # the serving path (GEAR), with the outlier terms
+    (2, 4, 256, 3),
+    (4, 4, 256, 3),   # Mistral-7B GEAR: no terms' buffer, three an SM
+    (4, 4, 0, 3),
+    (8, 8, 256, 1),
+])
+def test_decode_plan_of_the_main_shapes(gq, bits, ko, bps):
+    """How many blocks of the decode kernel an SM holds, which the token
+    splits then aim at."""
+    smem = TK.decode_smem_bytes(gq, 128, bits, 4, 64, 64, ko, False, False)
+    assert TK.blocks_per_sm(smem) == bps
+    if (gq, bits, ko) == (4, 4, 256):
+        # the Mistral-7B path: 16 rows of 35 live tiles, in one wave
+        n_split, per = TK.splits(4416, 16, 132, bps, TK.MAX_TILES)
+        assert (n_split, per) == (18, 2) and 16 * (n_split + 1) <= 132 * bps
+
+
 @pytest.mark.parametrize("gq", TK.GQ_SIZES)
 def test_flash_blocks_fit_on_an_sm(gq):
     smem = TF.flash_smem_bytes(gq, 128)
     fit = 233472 // (smem + 1024)  # 228 KB an SM, 1 KB reserved a block
     assert fit >= (TF.BLOCKS_PER_SM if gq <= 4 else 2)
     assert smem <= TK.SMEM_MAX
+
+
+def test_ptxas_usage_names_every_instantiation():
+    """The build log's registers and spills by kernel and template
+    arguments, the pack kernel's input type included (its float32 and bf16
+    instantiations must not fold into one name)."""
+    from gear_tpu_torch.kernels import _build
+
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_112token"
+        "_kernelI13__nv_bfloat16Li4EEEvPKT_PiPfS6_lii' for 'sm_90a'",
+        "ptxas info    : Used 96 registers",
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_112token"
+        "_kernelIfLi4EEEvPKT_PiPfS5_lii' for 'sm_90a'",
+        "    8 bytes spill stores, 16 bytes spill loads",
+        "ptxas info    : Used 90 registers",
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119decode"
+        "_split_kernelILi4ELi1ELb0ELb1EEEvNS_6ParamsE' for 'sm_90a'",
+        "ptxas info    : Used 150 registers",
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_114channel"
+        "_kernelEPKfPiPfS3_iii' for 'sm_90a'",
+        "ptxas info    : Used 40 registers",
+    ])
+    assert _build.ptxas_usage(log) == {
+        "token_kernel<bf16,4>": (96, 0, 0),
+        "token_kernel<float,4>": (90, 8, 16),
+        "decode_split_kernel<4,1,0,1>": (150, 0, 0),
+        "channel_kernel": (40, 0, 0),
+    }
