@@ -8,11 +8,13 @@ Phases, each printing lines of its own:
   2. the pack kernels against their plain versions (D=128, group 64, v_group
      64) at B=4, H=32, S=2048 with bits 2/4/8 and, at int4, at the shapes
      the end-to-end prefills below give them (Llama-2-7B: 128 rows of 1024
-     bf16 tokens, as float32 and, for the token pack, as the bf16 the GEARL
-     path hands it; Mistral-7B: 16 rows of 4352 tokens, outliers replaced
+     bf16 tokens, as float32 and as the bf16 the GEARL path hands both,
+     K as a strided view of the model's [B, S, H, D] projection;
+     Mistral-7B: 16 rows of 4352 tokens, outliers replaced
      by the block mean, float32; a serving admission: 32 rows of 3008
      tokens, cleaned likewise): words, scales and minima must be
-     bit-equal;
+     bit-equal; and in the profiler's trace of the GEARL prefill's K route
+     no kernel may run before the channel pack (no copy of K);
   3. the decode kernel against the plain ``cache.attend`` on full-width
      caches built by the port's own prefill + append across a flush: GEARL
      (bits 2/4/8, GQA 32/8 heads, left padding, a sliding window that cuts
@@ -33,24 +35,32 @@ Phases, each printing lines of its own:
      tokens. Each run's launch counts are set to 0 just before it and read
      just after: fused mode must have gone through the decode and pack
      kernels, raw mode through the flash kernel;
-  6. a small model in fused mode (GEARL, then GEAR), decoding in lockstep on
+  6. simulated mode (the accuracy path) through ``GearLM`` at the full
+     width and depth of Llama-2-7B, GEAR int4, batch 4, prompts of ~1,000
+     tokens, 130 new tokens (the whole cache recompressed after decode steps
+     63 and 127; max_len 1216, since 1024 + 129 tokens overflow 1152): one
+     layer's prompt ``compress_kv`` on the card against the CPU, method NONE
+     against raw mode's greedy tokens, the flash kernel launched once per
+     layer per decode step, finite logits; prefill, step and recompression
+     times beside raw mode's;
+  7. a small model in fused mode (GEARL, then GEAR), decoding in lockstep on
      the card (kernels) and on the CPU (plain path) from one prefill: the
      logits must agree;
-  7. the paged decode kernel against the plain ``paged.attend_gathered`` on
+  8. the paged decode kernel against the plain ``paged.attend_gathered`` on
      pools built by the port's own ``prefill_paged`` + ``append_paged``
      across a flush: rows of different lengths on page ids out of order and
      interleaved between rows, one page shared by two rows, one parked row;
      GEARL and GEAR int4, int2, int8, int8 bases, GQA, left padding, a
      window that cuts into one row's prefix and not another's, pages of 64
      and of 256 tokens, and the shapes of the serving path below;
-  8. continuous-batching serving through ``PagedServingEngine`` at the full
+  9. continuous-batching serving through ``PagedServingEngine`` at the full
      width and depth of Llama-2-7B, GEAR int4, 8 slots over a pool of 96
      pages of 256 tokens, 12 requests from a numpy seed (the first 8 prompts
      near 3,000 tokens, so that the 8th admission waits for pages); launch
      counts set to 0 just before and read just after; mid-run one layer's
      paged attention is held against the plain version on the live pool and
      both are timed there (the paged kernel's row of the kernels' record);
-  9. a small model served by ``PagedServingEngine`` on the card (kernels) and
+  10. a small model served by ``PagedServingEngine`` on the card (kernels) and
      on the CPU (plain path) in lockstep, with a pool small enough to force
      a preemption: the logits must agree; then the dense ``ServingEngine``
      on the card against the paged one.
@@ -63,6 +73,7 @@ also go to gear_tpu_torch/_build/.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -174,8 +185,9 @@ def cleaned_blocks(torch, x, hkv):
 PACK_CASES = [
     (4, 32, 2048, (2, 4, 8), False, "float32", None),
     # the Llama-2-7B path's prefill: batch 4, 32 kv heads, bucket 1024; the
-    # GEARL path hands the token pack its bf16 block (the channel pack, B2,
-    # takes float32)
+    # GEARL path hands both packs its bf16 blocks: the token pack (B3) a
+    # contiguous V, the channel pack (B2) K as the model's strided view of
+    # its [B, S, H, D] projection
     (4, 32, 1024, (4,), False, "float32", ""),
     (4, 32, 1024, (4,), False, "bfloat16", "_bf16"),
     # the Mistral-7B path's prefill: batch 2, 8 kv heads, bucket 4352, GEAR
@@ -200,17 +212,19 @@ def phase_pack(torch, timer, record):
         if cleaned:
             x = cleaned_blocks(torch, x, hkv)
         x = x.to(getattr(torch, dtype))
+        # B2's input as the model gives it: a [B, H, S, D] view of [B, S, H,
+        # D] memory at bf16, contiguous float32 blocks otherwise
+        xk = (x.reshape(batch, hkv, s, d).transpose(1, 2).contiguous()
+              .transpose(1, 2) if dtype == "bfloat16" else x)
         for bits in widths:
             wd = d * bits // 32
-            for kern, plain, kw, side in (
+            for kern, plain, kw, side, xin in (
                     (TP.quant_pack_tokens, TP.quant_pack_tokens_plain,
-                     dict(v_group=g), n * s * (d // g)),
+                     dict(v_group=g), n * s * (d // g), x),
                     (TP.quant_pack_channels, TP.quant_pack_channels_plain,
-                     dict(group=g), n * (s // g) * d)):
-                if dtype != "float32" and kern is TP.quant_pack_channels:
-                    continue  # B2 takes float32
-                got = kern(x, bits=bits, **kw)
-                want = plain(x, bits=bits, **kw)
+                     dict(group=g), n * (s // g) * d, xk)):
+                got = kern(xin, bits=bits, **kw)
+                want = plain(xin, bits=bits, **kw)
                 torch.cuda.synchronize()
                 for a, b in zip(got, want):
                     check(a.shape == b.shape and torch.equal(a, b),
@@ -218,13 +232,13 @@ def phase_pack(torch, timer, record):
                           "bit-equal to plain")
                 err = max(float((a.double() - b.double()).abs().max())
                           for a, b in zip(got, want))
-                ms = timer(lambda: kern(x, bits=bits, **kw), names=(
+                ms = timer(lambda: kern(xin, bits=bits, **kw), names=(
                     "token_kernel" if kern is TP.quant_pack_tokens
                     else "channel_kernel",))
-                plain_ms = timer(lambda: plain(x, bits=bits, **kw), iters=5)
-                nbytes = (x.numel() * x.element_size() + n * s * wd * 4
+                plain_ms = timer(lambda: plain(xin, bits=bits, **kw), iters=5)
+                nbytes = (xin.numel() * xin.element_size() + n * s * wd * 4
                           + 2 * side * 4)
-                bms, by = bound_ms(nbytes, 8 * x.numel())
+                bms, by = bound_ms(nbytes, 8 * xin.numel())
                 log(f"pack {kern.__name__} bits={bits} [{n}x{s}x{d}] {dtype}"
                     f"{' outlier-cleaned' if cleaned else ''} bit-equal "
                     f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
@@ -233,7 +247,42 @@ def phase_pack(torch, timer, record):
                     record[kern.__name__ + row] = dict(
                         max_abs_err=err, ms=ms, plain_ms=plain_ms,
                         bound_ms=bms, bound_by=by, library_ms=None)
-        del x
+        del x, xk
+    k_route_trace(torch)
+
+
+def k_route_trace(torch):
+    """The GEARL prefill's K block route (``cache._compress_k_block_pk``) on
+    the model's bf16 K at the Llama-2-7B path's shape, a [B, H, S, D] view
+    of [B, S, H, D] memory: in the profiler's trace no kernel runs before
+    the channel kernel (no copy of K, float32 or other)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from gear_tpu_torch import cache as TC
+
+    spec = TC.CacheSpec(batch=4, num_kv_heads=32, head_dim=128, max_len=1024,
+                        bits=4, group=64)
+    k = torch.randn((4, 1024, 32, 128), device="cuda").bfloat16()
+    k = k.transpose(1, 2)
+    TC._compress_k_block_pk(spec, k)
+    pad = torch.zeros(1024, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(Timer.PAD):  # the trace can lose its first records
+            pad.zero_()
+        TC._compress_k_block_pk(spec, k)
+        torch.cuda.synchronize()
+    events = sorted((e for e in prof.events()
+                     if e.device_type == DeviceType.CUDA
+                     and "FillFunctor" not in e.name),
+                    key=lambda e: e.time_range.start)
+    names = [re.sub(r"^void |\(anonymous namespace\)::|at::native::", "",
+                    e.name)[:48] for e in events]
+    check(bool(names) and "channel_kernel" in names[0],
+          f"K route: the channel kernel comes first, got {names}")
+    log(f"K route (GEARL prefill, bf16 K [4x32x1024x128] strided): kernels "
+        f"in order {names}")
 
 
 DECODE_KERNELS = ("decode_split_kernel", "attn_merge_kernel")
@@ -247,7 +296,8 @@ MAIN_PATH_KERNELS = (
     ("B5 serving", "decode_split_kernel<4,1,0,1>"),
     ("B3 Llama-2-7B", "token_kernel<bf16,4,1>"),
     ("B3 Mistral-7B and serving", "token_kernel<float,4,1>"),
-    ("B2", "channel_kernel"),
+    ("B2 Llama-2-7B", "channel_kernel<bf16,4>"),
+    ("B2 Mistral-7B and serving", "channel_kernel<float,4>"),
 )
 FLASH_KERNELS = ("flash_split_kernel", "attn_merge_kernel")
 
@@ -609,6 +659,169 @@ def phase_e2e(torch, tag, cfg, method, batch, lens, n_new, max_len,
     log(f"e2e {tag}: int8 {method} fused vs raw greedy agreement over "
         f"{horizon} tokens: {agree:.3f}")
     del params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_simulated(torch, cfg):
+    """Simulated mode (the accuracy path) through ``GearLM`` at the full
+    width and depth of Llama-2-7B, seeded random bf16 weights, GEAR int4
+    (left 0.02, group 64, rank 2, prefill rank 4, loop 3), stream_grouping
+    off, batch 4, prompts of ~1,000 tokens, 130 new tokens: the prompt's K/V
+    compressed inside the prefill, the whole cache again after decode steps
+    63 and 127, decode over the raw cache through the flash kernel. Returns
+    the launch counts of the main-path run."""
+    import numpy as np
+
+    from gear_tpu_torch import kernels
+    from gear_tpu_torch.api import GearLM
+    from gear_tpu_torch.config import CompressionConfig
+    from gear_tpu_torch.core import simulated
+    from gear_tpu_torch.engine import EngineConfig
+    from gear_tpu_torch.models import llama
+
+    lens, batch, n_new, gap = [1000, 1024, 977, 1011], 4, 130, 64
+    # 1024 + 129 appended tokens, and 5 more for the profiled steps below
+    max_len = 1216
+    t0 = time.perf_counter()
+    params = llama.init_params(cfg, seed=0)
+    torch.cuda.synchronize()
+    log(f"simulated Llama-2-7B: layers {cfg.num_layers} (depth not cut), "
+        f"GEAR int4 left 0.02 group 64 rank 2 prefill rank 4 loop 3, "
+        f"streaming_gap {gap}, stream_grouping off; batch {batch}, prompts "
+        f"{lens}, {n_new} new tokens, max_len {max_len}; random init "
+        f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in lens]
+
+    def lm_for(mode, method):
+        comp = CompressionConfig(num_layers=cfg.num_layers,
+                                 compress_method=method, quantize_bit=4,
+                                 group_size=64, rank=2, prefill_rank=4,
+                                 loop=3, left=0.02, streaming_gap=gap,
+                                 stream_grouping=False)
+        return GearLM(cfg=cfg, params=params, comp=comp,
+                      engine_cfg=EngineConfig(max_len=max_len, mode=mode),
+                      batch_size=batch)
+
+    # one layer's prompt compression at full width, on the card and on the
+    # CPU with the same inits: the quantization is elementwise and exact on
+    # both, the low-rank products sum in other orders
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    k = torch.randn((batch, cfg.num_kv_heads, 1024, cfg.head_dim),
+                    generator=gen, device="cuda").bfloat16().float()
+    v = torch.randn(k.shape, generator=gen, device="cuda").bfloat16().float()
+    inits = {w: torch.rand((batch, cfg.num_kv_heads, cfg.head_dim, 4),
+                           generator=torch.Generator().manual_seed(i))
+             for i, w in enumerate("kv")}
+    lcomp = lm_for("simulated", "GEAR").comp.layer(0)
+
+    def p0(which, shape):
+        return inits[which]
+
+    got = simulated.compress_kv(k, v, lcomp, prefill=True, p0=p0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = simulated.compress_kv(k.cpu(), v.cpu(), lcomp, prefill=True, p0=p0)
+    cpu_s = time.perf_counter() - t0
+    err = max(float((g.cpu() - w).abs().max()) for g, w in zip(got, want))
+    check(all(torch.allclose(g.cpu(), w, rtol=1e-4, atol=1e-4)
+              for g, w in zip(got, want)),
+          "simulated compress_kv: card and CPU agree")
+    log(f"simulated compress_kv [{batch}x{cfg.num_kv_heads}x1024x"
+        f"{cfg.head_dim}] GEAR: card vs CPU max |diff| = {err:.3e} (limit "
+        f"rtol 1e-4 / atol 1e-4: the power iteration's float32 products sum "
+        f"in other orders); CPU {cpu_s:.1f} s")
+    del k, v, got, want
+
+    # NONE compresses nothing: simulated mode's tokens are raw mode's
+    horizon = 32
+    none_sim = lm_for("simulated", "NONE").generate(prompts, horizon)
+    none_raw = lm_for("raw", "NONE").generate(prompts, horizon)
+    check(none_sim == none_raw, "simulated NONE gives raw mode's tokens")
+    log(f"simulated NONE vs raw: greedy tokens identical over {horizon} "
+        "tokens")
+
+    lm = lm_for("simulated", "GEAR")
+    eng = lm.engine
+    lm.generate(prompts, 2)  # warm-up
+    kernels.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = lm.generate(prompts, n_new)  # the main path
+    total_ms = (time.perf_counter() - t0) * 1e3
+    counts = kernels.launch_counts()
+    n_l, steps = cfg.num_layers, n_new - 1
+    check(len(out) == batch and all(len(o) == n_new for o in out)
+          and all(0 <= x < cfg.vocab_size for o in out for x in o),
+          "simulated output shape and range")
+    check(counts["flash_decode"] == n_l * steps
+          and counts["decode_attention"] == 0
+          and counts["quant_pack_channels"] == 0,
+          "simulated: flash kernel launched once per layer per decode step")
+    log(f"simulated main path: generate_ms={total_ms:.1f} ({n_new} tokens, "
+        f"one host-clock sample, two recompressions) launches={counts}")
+
+    # where the time goes: the prefill, each step, each recompression
+    from torch.profiler import ProfilerActivity, profile
+
+    s = eng.bucket_len(max(lens))
+    tokens, mask = eng.left_pad(prompts, 0, s)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches = eng.prefill(tokens, mask)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    check(bool(torch.isfinite(logits).all()), "simulated prefill logits "
+          "finite")
+    prompt_len = mask.sum(dim=1).to(torch.int32)
+    pad = (s - prompt_len).to(torch.int32)
+    cur = logits[:, -1].argmax(-1)
+    del logits
+    times, rec_ms = [], []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cur, lg, caches = eng.decode_step(caches, cur, prompt_len + i, pad,
+                                          step=i)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        if (i + 1) % gap == 0:
+            t0 = time.perf_counter()
+            eng.recompress(caches, s + i + 1, step=i)
+            torch.cuda.synchronize()
+            rec_ms.append((time.perf_counter() - t0) * 1e3)
+    check(bool(torch.isfinite(lg).all()), "simulated decode logits finite")
+    check(len(rec_ms) == 2, "simulated: two recompressions")
+    median = sorted(times)[len(times) // 2]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(steps, steps + 5):
+            cur, _, caches = eng.decode_step(caches, cur, prompt_len + i, pad,
+                                             step=i)
+        torch.cuda.synchronize()
+    rows = prof.key_averages()
+    device_ms = sum(e.device_time_total for e in rows) / 5 / 1e3
+    n_kernels = sum(e.count for e in rows) / 5
+    log(f"simulated GEAR steps, host clock, synchronised each: "
+        f"prefill_ms={prefill_ms:.1f} median_step_ms={median:.2f} "
+        f"min_step_ms={min(times):.2f} recompression_ms="
+        f"{', '.join(f'{r:.1f}' for r in rec_ms)} "
+        f"device_ms_per_step={device_ms:.2f} "
+        f"device_launches_per_step={n_kernels:.0f} "
+        f"tokens_per_s={batch / median * 1e3:.1f} (batch / median step)")
+    del lm, eng, caches
+
+    raw = lm_for("raw", "GEAR").engine
+    tokens, mask = raw.left_pad(prompts, 0, s)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    raw.prefill(tokens, mask)
+    torch.cuda.synchronize()
+    raw_prefill_ms = (time.perf_counter() - t0) * 1e3
+    median, line = step_breakdown(torch, raw, prompts, lens)
+    log(f"simulated beside raw (same config): prefill_ms={raw_prefill_ms:.1f}"
+        f" {line} tokens_per_s={batch / median * 1e3:.1f}")
+    del raw, params
     torch.cuda.empty_cache()
     return counts
 
@@ -1242,6 +1455,10 @@ def main() -> int:
         "e2e llama": lambda: counts.update(llama=phase_e2e(
             torch, "Llama-2-7B", llama_cfg, "GEARL", 4,
             [1000, 1024, 977, 1011], 80, 1152, "depth not cut")),
+        # the simulated mode's path (the accuracy path): raw cache, prompt
+        # and cache recompressed by fake quantization, the flash kernel
+        "e2e simulated": lambda: counts.update(
+            simulated={"simulated": phase_simulated(torch, llama_cfg)}),
         "small gearl": lambda: phase_small(torch, "GEARL"),
         "small gear": lambda: phase_small(torch, "GEAR"),
         "paged": lambda: phase_paged(torch, timer, record),
@@ -1273,6 +1490,9 @@ def main() -> int:
          "llama", "fused"),
         ("quant_pack_tokens_bf16", "quant_pack_tokens",
          "gear_tpu_torch/csrc/pack.cu", "gear_tpu/kernels/pack.py:67",
+         "llama", "fused"),
+        ("quant_pack_channels_bf16", "quant_pack_channels",
+         "gear_tpu_torch/csrc/pack.cu", "gear_tpu/kernels/pack.py:90",
          "llama", "fused"),
         ("quant_pack_channels_gear", "quant_pack_channels",
          "gear_tpu_torch/csrc/pack.cu", "gear_tpu/kernels/pack.py:90",

@@ -399,7 +399,8 @@ def _outlier_deltas(spec: CacheSpec, x_clean, o_idx, o_exact, o_dup,
                     side_idx, scale_q, mn_q, scale_s, mn_s) -> torch.Tensor:
     """Deltas ``exact - dequantized`` at the outlier positions of each block.
 
-    ``x_clean`` [B,H,NBs,G*D] f32 is the cleaned block, ``side_idx`` names,
+    ``x_clean`` [B,H,NBs,G*D] f32 is the cleaned block (None without
+    outliers), ``side_idx`` names,
     per entry of ``o_idx``, its sideband among the block's [B,H,NBs,n]
     sidebands: the f32 ones the codes used (``*_q``) and the stored,
     sideband-cast ones (``*_s``), so that the restore reproduces the exact
@@ -496,8 +497,10 @@ def _compress_v_block(spec: CacheSpec, v: torch.Tensor):
 
 def _compress_k_block_pk(spec: CacheSpec, k: torch.Tensor):
     """:func:`_compress_k_block` through the fused pack kernel
-    (``kernels.pack.quant_pack_channels``): one read of the (cleaned) block
-    emits the packed words and sidebands. Used by :func:`prefill` on the
+    (``kernels.pack.quant_pack_channels``): one read of the block emits the
+    packed words and sidebands. The kernel reads the block in the type and
+    layout it has: the model's bf16 K (a strided view) without outliers,
+    the cleaned float32 block with them. Used by :func:`prefill` on the
     card."""
     from .kernels import pack as packk
 
@@ -505,16 +508,18 @@ def _compress_k_block_pk(spec: CacheSpec, k: torch.Tensor):
     g = spec.group
     nbs = s_len // g
     k, o_idx, o_exact, o_dup = _take_outliers(spec, k)
-    xf = k.float().reshape(b * h, s_len, d).contiguous()
-    words, scale, mn = packk.quant_pack_channels(xf, bits=spec.bits, group=g)
+    if k.dtype not in (torch.float32, torch.bfloat16):
+        k = k.float()
+    words, scale, mn = packk.quant_pack_channels(k, bits=spec.bits, group=g)
     packed = words.reshape(b, h, s_len, spec.v_words).transpose(-1, -2)
     scale = scale.reshape(b, h, nbs, d)  # f32: what the codes used
     mn = mn.reshape(b, h, nbs, d)
     scale_s = scale.to(spec.sideband_dtype)
     mn_s = mn.to(spec.sideband_dtype)
-    o_val = _outlier_deltas(spec, xf.reshape(b, h, nbs, g * d), o_idx,
-                            o_exact, o_dup, o_idx % d, scale, mn, scale_s,
-                            mn_s)
+    x_clean = (k.float().reshape(b, h, nbs, g * d)
+               if spec.outliers_per_block else None)
+    o_val = _outlier_deltas(spec, x_clean, o_idx, o_exact, o_dup, o_idx % d,
+                            scale, mn, scale_s, mn_s)
     return (packed, scale_s, mn_s,
             *_sort_outliers(spec, o_idx, o_val, "token"))
 

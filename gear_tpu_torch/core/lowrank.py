@@ -83,3 +83,12 @@ def reconstruct(p: torch.Tensor, q: torch.Tensor, dtype=None) -> torch.Tensor:
     """``Q @ P^T`` -> [..., s, d]."""
     out = q @ p.transpose(-1, -2)
     return out if dtype is None else out.to(dtype)
+
+
+def low_rank_residual(x: torch.Tensor, rank: int, n_iter: int, *,
+                      p0: torch.Tensor | None = None,
+                      generator: torch.Generator | None = None):
+    """The rank-``rank`` reconstruction ``Q @ P^T`` of ``x`` [..., s, d] in
+    ``x.dtype``; the init as :func:`power_iterate` takes it."""
+    p, q = power_iterate(x, rank, n_iter, p0=p0, generator=generator)
+    return reconstruct(p, q, dtype=x.dtype)

@@ -61,6 +61,15 @@ def dequantize_groups(codes: torch.Tensor, scale: torch.Tensor,
     return x.reshape(codes.shape).to(dtype)
 
 
+def fake_quantize_groups(x: torch.Tensor, bits: int, group_size: int, *,
+                         levels: int | None = None) -> torch.Tensor:
+    """Quantize -> dequantize round trip along the last dim, back in
+    ``x.dtype`` (the simulated accuracy path); ``levels`` overrides the top
+    code ``2**bits - 1``."""
+    codes, scale, mn = quantize_groups(x, bits, group_size, levels=levels)
+    return dequantize_groups(codes, scale, mn, group_size, dtype=x.dtype)
+
+
 def _to_int32_bits(w: torch.Tensor) -> torch.Tensor:
     """int64 words in [0, 2**32) -> int32 with the same bit pattern."""
     return torch.where(w >= 2 ** 31, w - 2 ** 32, w).to(torch.int32)

@@ -28,17 +28,30 @@
 // code from the product with the step's reciprocal, the IEEE quotient
 // deciding near a half-integer; word w gathers its fields from lanes
 // w + f * WD, one shuffle a field; each warp walks groups of rows
-// grid-stride and loads the next group while it packs this one. Channel
-// kernel (B2), as first written: a block stages its rows in shared memory
-// with coalesced loads, reduces min/max there, and writes whole words with
-// consecutive threads on consecutive words (its redesign is later work).
+// grid-stride and loads the next group while it packs this one.
+// Channel kernel (B2), one read of every input byte: a thread owns one
+// output word of a row, so it loads that word's fields (channels
+// 4w..4w+3 + f * D / vpb) as one 16-byte (float32) or 8-byte (bf16) load
+// each, and consecutive threads hold consecutive words of consecutive rows
+// (whole sectors in, one coalesced run of words out). The threads of a
+// block cover `slots` rows at a time and walk the group's rows in steps,
+// keeping the first BITS steps (32 floats) in registers. Per-channel min and
+// max are reduced over a thread's rows in registers, then over the row slots
+// through shared memory (one barrier), and a second barrier publishes each
+// channel's min, divisor and reciprocal; the codes come from the registers
+// with the token kernel's reciprocal and exact fallback, and each thread
+// ORs its word together with no shuffle. Blocks walk (group, word chunk)
+// units grid-stride, as many as are resident, loading the next unit while
+// they pack this one. Rows past the registers' steps are read a second time
+// (from L2); rows wider than a block's threads split into chunks of words,
+// each a unit of its own. The input is read through its strides (batch,
+// head, token), so the model's K needs no contiguous copy first.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 128;  // the channel kernel's block
 constexpr int kTokWarps = 8;   // the token kernel's block: 8 warps
 
 // Rows a warp of the token kernel packs at a time (and loads ahead): 1 KB
@@ -49,15 +62,8 @@ __host__ __device__ constexpr int tok_rows() {
   return 8 / static_cast<int>(sizeof(T));
 }
 
-__device__ __forceinline__ uint32_t quant_code(float x, float mn, float scale,
-                                               float levels) {
-  const float safe = scale == 0.0f ? 1.0f : scale;
-  float q = rintf((x - mn) / safe);
-  q = fminf(fmaxf(q, 0.0f), levels);
-  return static_cast<uint32_t>(q);
-}
-
-// quant_code without the division, for the token kernel. The step's
+// The code of x - mn, rint((x - mn) / divisor) clipped to [0, levels],
+// without a division per element, for both kernels. The step's
 // reciprocal (rcp.approx, within 2 ulp for a step far from the ends of the
 // float range; nan otherwise) times x - mn lies within 6e-5 of the IEEE
 // quotient (which is at most levels (1 + 2^-21): the step is (max - min)
@@ -65,9 +71,9 @@ __device__ __forceinline__ uint32_t quant_code(float x, float mn, float scale,
 // it sits within 1e-3 of a half-integer; there, and for a nan, the IEEE
 // quotient decides: a branch almost no element takes. Adding 1.5 * 2^23
 // rounds half to even, as rintf does, and leaves the code in the low byte.
-// With quant_code's division per element instead, the kernel ran 30-37%
-// slower on the H100 (PERF.md); tests/test_torch_cuda.py holds it to
-// the IEEE quotient at and next to half-integers.
+// With the division per element instead, the token kernel ran 30-37%
+// slower on the H100 (PERF.md); tests/test_torch_cuda.py holds both
+// kernels to the IEEE quotient at and next to half-integers.
 __device__ __forceinline__ float fast_rcp(float x) {
   if (!(x > 1e-30f && x < 1e30f)) return __int_as_float(0x7FFFFFFF);
   float r;
@@ -86,22 +92,42 @@ __device__ __forceinline__ uint32_t code_of(float num, float safe, float inv,
   return __float_as_uint(m) & 0xFFu;
 }
 
-// The four consecutive elements of a row that a lane holds, as floats
-// (bf16 -> f32 is exact: the bits move up 16 places).
-__device__ __forceinline__ void load4(const float* p, float* v) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  v[0] = a.x;
-  v[1] = a.y;
-  v[2] = a.z;
-  v[3] = a.w;
+// Four consecutive elements of a row as loaded (one 16-byte or 8-byte
+// load) and widened to floats (bf16 -> f32 is exact: the bits move up 16
+// places).
+template <typename T>
+struct Quad;
+
+template <>
+struct Quad<float> {
+  using Raw = float4;
+  __device__ __forceinline__ static void widen(const Raw& a, float* v) {
+    v[0] = a.x;
+    v[1] = a.y;
+    v[2] = a.z;
+    v[3] = a.w;
+  }
+};
+
+template <>
+struct Quad<__nv_bfloat16> {
+  using Raw = uint2;
+  __device__ __forceinline__ static void widen(const Raw& a, float* v) {
+    v[0] = __uint_as_float(a.x << 16);
+    v[1] = __uint_as_float(a.x & 0xFFFF0000u);
+    v[2] = __uint_as_float(a.y << 16);
+    v[3] = __uint_as_float(a.y & 0xFFFF0000u);
+  }
+};
+
+template <typename T>
+__device__ __forceinline__ typename Quad<T>::Raw load_raw(const T* p) {
+  return *reinterpret_cast<const typename Quad<T>::Raw*>(p);
 }
 
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* v) {
-  const uint2 a = *reinterpret_cast<const uint2*>(p);
-  v[0] = __uint_as_float(a.x << 16);
-  v[1] = __uint_as_float(a.x & 0xFFFF0000u);
-  v[2] = __uint_as_float(a.y << 16);
-  v[3] = __uint_as_float(a.y & 0xFFFF0000u);
+template <typename T>
+__device__ __forceinline__ void load4(const T* p, float* v) {
+  Quad<T>::widen(load_raw(p), v);
 }
 
 // x [M, D] f32 or bf16 -> words [M, D*bits/32] i32, scale/mn [M, D/v_group]
@@ -236,7 +262,7 @@ token_kernel(const T* __restrict__ x, int32_t* __restrict__ words,
           hi[i] = ghi[i];
         }
       }
-      // quantize (as quant_code), and OR this lane's codes into its part of
+      // quantize (as code_of), and OR this lane's codes into its part of
       // the word
       const bool live = row < m;
       // step, divisor and its reciprocal per group: once a lane when its
@@ -278,55 +304,201 @@ token_kernel(const T* __restrict__ x, int32_t* __restrict__ words,
   }
 }
 
-// x [NBLK, G, D] f32 -> words [NBLK*G, D*bits/32] i32, scale/mn [NBLK, D] f32.
-__global__ void channel_kernel(const float* __restrict__ x,
-                               int32_t* __restrict__ words,
-                               float* __restrict__ scale_out,
-                               float* __restrict__ mn_out, int group, int d,
-                               int bits) {
+constexpr int kChanThreads = 256;  // the channel kernel's block: 8 warps
+
+// Words of a row that one unit of the channel kernel covers: the whole row,
+// or kChanThreads of them.
+__host__ __device__ inline int chan_chunk_words(int wd) {
+  return wd < kChanThreads ? wd : kChanThreads;
+}
+
+// Shared floats of a channel-kernel block: per row slot the partial min and
+// max of the chunk's channels, then each channel's min, divisor and
+// reciprocal.
+__host__ inline size_t chan_smem_bytes(int d, int bits) {
+  const int wc = chan_chunk_words(d * bits / 32);
+  const int cw = 4 * (8 / bits) * wc, slots = kChanThreads / wc;
+  return sizeof(float) * static_cast<size_t>(2 * slots + 3) * cw;
+}
+
+// x [B, H, S, D] f32 or bf16, rows read through the strides s_b, s_h, s_t
+// (in elements; the channels contiguous) -> words [B*H*S, D*bits/32] i32,
+// scale/mn [B*H*S/G, D] f32. A unit is one group of G rows and one chunk
+// of at most kChanThreads words of them. Thread (slot, wl) owns word
+// w0 + wl of rows slot, slot + slots, ...: the fields of that word are
+// channels 4w + k + f * D / vpb (k < 4, f < vpb), one quad each.
+template <typename T, int BITS>
+__global__ void __launch_bounds__(kChanThreads)
+channel_kernel(const T* __restrict__ x, int32_t* __restrict__ words,
+               float* __restrict__ scale_out, float* __restrict__ mn_out,
+               int64_t n_bh, int heads, int64_t s_b, int64_t s_h,
+               int64_t s_t, int n_grp, int group, int d) {
+  constexpr int NQ = 8 / BITS;   // fields of a word: one quad each
+  constexpr int RREG = BITS;     // row steps kept in registers: 32 floats
+  constexpr float kLevels = static_cast<float>((1 << BITS) - 1);
+  using Raw = typename Quad<T>::Raw;
   extern __shared__ float smem[];
-  float* xs = smem;               // [group][d]
-  float* sc = xs + group * d;     // [d]
-  float* mns = sc + d;            // [d]
-  const int64_t blk = blockIdx.x;
-  const float* xb = x + blk * group * d;
-  const float levels = static_cast<float>((1 << bits) - 1);
-  const float inv_levels = 1.0f / levels;
+  const float inv_levels = 1.0f / kLevels;
+  const int wd = d * BITS / 32, stride = d / NQ;
+  const int wc = chan_chunk_words(wd);
+  const int nch = (wd + wc - 1) / wc;
+  const int slots = kChanThreads / wc;
+  const int cw = 4 * NQ * wc;  // channels of a chunk, as [f][wl][k]
+  float* plo = smem;
+  float* phi = plo + slots * cw;
+  float* fmn = phi + slots * cw;
+  float* fsafe = fmn + cw;
+  float* finv = fsafe + cw;
+  const int slot = threadIdx.x / wc, wl = threadIdx.x % wc;
+  const int nstep = (group + slots - 1) / slots;
+  const int units = static_cast<int>(n_bh * n_grp * nch);
 
-  for (int i = threadIdx.x; i < group * d; i += blockDim.x) xs[i] = xb[i];
-  __syncthreads();
-
-  for (int c = threadIdx.x; c < d; c += blockDim.x) {
-    float lo = xs[c], hi = xs[c];
-    for (int t = 1; t < group; ++t) {
-      lo = fminf(lo, xs[t * d + c]);
-      hi = fmaxf(hi, xs[t * d + c]);
+  // unit u: its group's first row, the group's index, its first word (32-bit
+  // divisions, once a unit)
+  struct Unit {
+    const T* rows;
+    int blk, w0;
+  };
+  auto unit_of = [&](int u) {
+    const int blk = u / nch;
+    const int bh = blk / n_grp;
+    return Unit{x + (bh / heads) * s_b + (bh % heads) * s_h +
+                    static_cast<int64_t>(blk - bh * n_grp) * group * s_t,
+                blk, (u - blk * nch) * wc};
+  };
+  auto load = [&](const T* rows, int row, int w, Raw (&to)[NQ]) {
+    const T* r = rows + row * s_t + 4 * w;
+#pragma unroll
+    for (int f = 0; f < NQ; ++f) to[f] = load_raw(r + f * stride);
+  };
+  auto fetch = [&](const Unit& un, Raw (&to)[RREG][NQ]) {
+    if (slot >= slots || un.w0 + wl >= wd) return;
+#pragma unroll
+    for (int s = 0; s < RREG; ++s) {
+      const int row = slot + slots * s;
+      if (row < group) load(un.rows, row, un.w0 + wl, to[s]);
     }
-    const float s = (hi - lo) * inv_levels;
-    sc[c] = s;
-    mns[c] = lo;
-    scale_out[blk * d + c] = s;
-    mn_out[blk * d + c] = lo;
-  }
-  __syncthreads();
+  };
 
-  const int vpb = 8 / bits;
-  const int stride = d / vpb;
-  const int wd = d * bits / 32;
-  for (int i = threadIdx.x; i < group * wd; i += blockDim.x) {
-    const int t = i / wd, w = i % wd;
-    uint32_t word = 0;
-    for (int k = 0; k < 4; ++k) {
-      const int c = 4 * w + k;
-      uint32_t byte = 0;
-      for (int f = 0; f < vpb; ++f) {
-        const int ch = c + f * stride;
-        byte |= quant_code(xs[t * d + ch], mns[ch], sc[ch], levels)
-                << (f * bits);
+  // (the launcher starts no more blocks than there are units)
+  Raw cur[RREG][NQ], nxt[RREG][NQ];
+  Unit cu = unit_of(blockIdx.x), nu = cu;
+  fetch(cu, cur);
+  for (int u = blockIdx.x; u < units; u += gridDim.x) {
+    const T* rows = cu.rows;
+    const int64_t blk = cu.blk;
+    const int w0 = cu.w0;
+    const int w = w0 + wl;
+    const bool act = slot < slots && w < wd;
+    // min / max of this thread's rows, per channel of its word
+    float lo[NQ][4], hi[NQ][4];
+#pragma unroll
+    for (int f = 0; f < NQ; ++f)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        lo[f][k] = __int_as_float(0x7F800000);   // +inf
+        hi[f][k] = __int_as_float(0xFF800000);   // -inf
       }
-      word |= byte << (8 * k);
+    auto take = [&](const Raw (&r)[NQ]) {
+#pragma unroll
+      for (int f = 0; f < NQ; ++f) {
+        float v[4];
+        Quad<T>::widen(r[f], v);
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          lo[f][k] = fminf(lo[f][k], v[k]);
+          hi[f][k] = fmaxf(hi[f][k], v[k]);
+        }
+      }
+    };
+    if (act) {
+#pragma unroll
+      for (int s = 0; s < RREG; ++s)
+        if (slot + slots * s < group) take(cur[s]);
+      for (int s = RREG; s < nstep; ++s) {
+        const int row = slot + slots * s;
+        if (row >= group) break;
+        Raw r[NQ];
+        load(rows, row, w, r);
+        take(r);
+      }
+#pragma unroll
+      for (int f = 0; f < NQ; ++f) {
+        const int at = slot * cw + f * 4 * wc + 4 * wl;
+        *reinterpret_cast<float4*>(plo + at) =
+            make_float4(lo[f][0], lo[f][1], lo[f][2], lo[f][3]);
+        *reinterpret_cast<float4*>(phi + at) =
+            make_float4(hi[f][0], hi[f][1], hi[f][2], hi[f][3]);
+      }
     }
-    words[(blk * group + t) * wd + w] = static_cast<int32_t>(word);
+    __syncthreads();
+    // the next unit's loads fly while this one is reduced and packed
+    if (u + gridDim.x < units) {
+      nu = unit_of(u + gridDim.x);
+      fetch(nu, nxt);
+    }
+    // per channel over the row slots: min, step, divisor, reciprocal
+    for (int lc = threadIdx.x; lc < cw; lc += kChanThreads) {
+      const int f = lc / (4 * wc), wq = (lc / 4) % wc, k = lc % 4;
+      if (w0 + wq >= wd) continue;
+      float a = plo[lc], b = phi[lc];
+      for (int s = 1; s < slots; ++s) {
+        a = fminf(a, plo[s * cw + lc]);
+        b = fmaxf(b, phi[s * cw + lc]);
+      }
+      const float sc = (b - a) * inv_levels;
+      const float safe = sc == 0.0f ? 1.0f : sc;
+      fmn[lc] = a;
+      fsafe[lc] = safe;
+      finv[lc] = fast_rcp(safe);
+      const int64_t ch = blk * d + 4 * (w0 + wq) + k + f * stride;
+      scale_out[ch] = sc;
+      mn_out[ch] = a;
+    }
+    __syncthreads();
+    if (act) {
+      float mn[NQ][4], inv[NQ][4];
+#pragma unroll
+      for (int f = 0; f < NQ; ++f) {
+        const int at = f * 4 * wc + 4 * wl;
+        const float4 m4 = *reinterpret_cast<const float4*>(fmn + at);
+        const float4 i4 = *reinterpret_cast<const float4*>(finv + at);
+        mn[f][0] = m4.x; mn[f][1] = m4.y; mn[f][2] = m4.z; mn[f][3] = m4.w;
+        inv[f][0] = i4.x; inv[f][1] = i4.y; inv[f][2] = i4.z; inv[f][3] = i4.w;
+      }
+      auto pack = [&](const Raw (&r)[NQ], int row) {
+        uint32_t word = 0;
+#pragma unroll
+        for (int f = 0; f < NQ; ++f) {
+          const int at = f * 4 * wc + 4 * wl;
+          float v[4];
+          Quad<T>::widen(r[f], v);
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            // the divisor is read only where the reciprocal cannot decide
+            const uint32_t code = code_of(v[k] - mn[f][k], fsafe[at + k],
+                                          inv[f][k], kLevels);
+            word |= code << (8 * k + f * BITS);
+          }
+        }
+        words[(blk * group + row) * wd + w] = static_cast<int32_t>(word);
+      };
+#pragma unroll
+      for (int s = 0; s < RREG; ++s)
+        if (slot + slots * s < group) pack(cur[s], slot + slots * s);
+      for (int s = RREG; s < nstep; ++s) {
+        const int row = slot + slots * s;
+        if (row >= group) break;
+        Raw r[NQ];
+        load(rows, row, w, r);
+        pack(r, row);
+      }
+    }
+    cu = nu;
+#pragma unroll
+    for (int s = 0; s < RREG; ++s)
+#pragma unroll
+      for (int f = 0; f < NQ; ++f) cur[s][f] = nxt[s][f];
   }
 }
 
@@ -397,17 +569,85 @@ extern "C" int gear_quant_pack_tokens(const void* x, int x_bf16,
                                     stream));
 }
 
-extern "C" int gear_quant_pack_channels(const float* x, int32_t* words,
-                                        float* scale, float* mn,
-                                        int64_t nblocks, int group, int d,
+template <typename T, int BITS>
+cudaError_t launch_channels(const void* x, int32_t* words, float* scale,
+                            float* mn, int64_t n_bh, int heads, int64_t s_b,
+                            int64_t s_h, int64_t s_t, int n_grp, int group,
+                            int d, cudaStream_t stream) {
+  const size_t smem = chan_smem_bytes(d, BITS);
+  // blocks resident at once for this shared size (kept per instantiation;
+  // recomputed when the size changes)
+  static size_t smem_seen = 0;
+  static int resident = 0;
+  if (smem != smem_seen) {
+    if (smem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          channel_kernel<T, BITS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          static_cast<int>(smem));
+      if (err != cudaSuccess) return err;
+    }
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, channel_kernel<T, BITS>, kChanThreads, smem);
+    resident = sms * (per_sm > 0 ? per_sm : 1);
+    smem_seen = smem;
+  }
+  const int wd = d * BITS / 32, wc = chan_chunk_words(wd);
+  const int64_t units = n_bh * n_grp * ((wd + wc - 1) / wc);
+  const unsigned blocks =
+      static_cast<unsigned>(units < resident ? units : resident);
+  channel_kernel<T, BITS><<<blocks, kChanThreads, smem, stream>>>(
+      static_cast<const T*>(x), words, scale, mn, n_bh, heads, s_b, s_h, s_t,
+      n_grp, group, d);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_channels(const void* x, int32_t* words, float* scale,
+                            float* mn, int64_t n_bh, int heads, int64_t s_b,
+                            int64_t s_h, int64_t s_t, int n_grp, int group,
+                            int d, int bits, cudaStream_t stream) {
+  switch (bits) {
+    case 2: return launch_channels<T, 2>(x, words, scale, mn, n_bh, heads,
+                                         s_b, s_h, s_t, n_grp, group, d,
+                                         stream);
+    case 4: return launch_channels<T, 4>(x, words, scale, mn, n_bh, heads,
+                                         s_b, s_h, s_t, n_grp, group, d,
+                                         stream);
+    case 8: return launch_channels<T, 8>(x, words, scale, mn, n_bh, heads,
+                                         s_b, s_h, s_t, n_grp, group, d,
+                                         stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// x: float32 (x_bf16 = 0) or bf16 (x_bf16 = 1) [n_bh / heads, heads, s_len,
+// d] with element strides s_b, s_h, s_t and contiguous channels; every row
+// start aligned to 16 bytes; s_len a multiple of group, d of 32 / bits.
+extern "C" int gear_quant_pack_channels(const void* x, int x_bf16,
+                                        int32_t* words, float* scale,
+                                        float* mn, int64_t n_bh, int heads,
+                                        int64_t s_b, int64_t s_h, int64_t s_t,
+                                        int64_t s_len, int group, int d,
                                         int bits, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (static_cast<size_t>(group) * d + 2 * d);
-  if (smem > 48 * 1024)
-    cudaFuncSetAttribute(channel_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(smem));
-  if (nblocks > 0)
-    channel_kernel<<<static_cast<unsigned>(nblocks), kThreads, smem, stream>>>(
-        x, words, scale, mn, group, d, bits);
-  return static_cast<int>(cudaGetLastError());
+  const int64_t el = x_bf16 ? 2 : 4;
+  if (d <= 0 || group <= 0 || heads <= 0 || n_bh % heads || s_len % group ||
+      (bits != 2 && bits != 4 && bits != 8) ||
+      d % (32 / bits) || (reinterpret_cast<uintptr_t>(x) & 15) ||
+      (s_b * el) % 16 || (s_h * el) % 16 || (s_t * el) % 16)
+    return cudaErrorInvalidValue;
+  if (n_bh <= 0 || s_len == 0) return cudaSuccess;
+  const int wd = d * bits / 32, wc = chan_chunk_words(wd);
+  if (n_bh * (s_len / group) * ((wd + wc - 1) / wc) > INT32_MAX)
+    return cudaErrorInvalidValue;  // units are counted in 32 bits
+  const int n_grp = static_cast<int>(s_len / group);
+  return static_cast<int>(
+      x_bf16 ? launch_channels<__nv_bfloat16>(x, words, scale, mn, n_bh,
+                                              heads, s_b, s_h, s_t, n_grp,
+                                              group, d, bits, stream)
+             : launch_channels<float>(x, words, scale, mn, n_bh, heads, s_b,
+                                      s_h, s_t, n_grp, group, d, bits,
+                                      stream));
 }

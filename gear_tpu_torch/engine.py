@@ -8,12 +8,23 @@ between steps; the host syncs only every ``sync_every`` steps to check for
 end-of-sequence, and once at the end.
 
 Modes:
-  * ``fused`` — two-tier compressed cache (the speed + memory path), for
+  * ``fused``     — two-tier compressed cache (the speed + memory path), for
     every method of ``config.METHODS`` and for sliding-window models.
-  * ``raw``   — uncompressed bf16 cache (the baseline fused mode is
+  * ``raw``       — uncompressed bf16 cache (the baseline fused mode is
     compared with), attended by the flash-decode kernel on the card.
-The JAX engine's other modes (``simulated``, ``h2o``, ``sink``) raise
+  * ``simulated`` — the raw cache with fake-quant recompression (the
+    accuracy path): the prompt's K/V compressed inside the prefill, before
+    its attention, then every ``streaming_gap`` decode steps the newest
+    ``streaming_gap`` tokens (``stream_grouping``) or the whole cache
+    (the default) compressed again; decode attends the raw cache through
+    the flash-decode kernel on the card.
+The JAX engine's other modes (``h2o``, ``sink``) raise
 ``NotImplementedError``.
+
+Init sites of the simulated mode (``init(site, shape)``, see
+``models.llama``): ``("sim_prefill", layer, which)`` for the prompt's
+compression and ``("sim_recompress", step, layer, which)`` for the one after
+decode step ``step``.
 """
 from __future__ import annotations
 
@@ -22,16 +33,17 @@ from dataclasses import dataclass
 import torch
 
 from .config import CompressionConfig
+from .core import simulated
 from .device import resolve_device
 from .models import llama
 
-MODES = ("fused", "raw")
+MODES = ("fused", "raw", "simulated")
 
 
 @dataclass(frozen=True)
 class EngineConfig:
     max_len: int = 2048
-    mode: str = "fused"            # fused | raw
+    mode: str = "fused"            # fused | raw | simulated
     eos_token_id: int | None = None
     pad_token_id: int = 0
     temperature: float = 0.0       # 0 = greedy
@@ -101,14 +113,54 @@ class InferenceEngine:
 
     # -- stages ---------------------------------------------------------
 
+    @property
+    def simulating(self) -> bool:
+        """Simulated mode with a method that compresses, streaming on."""
+        lcomp = self.comp.layer(0)
+        return (self.ecfg.mode == "simulated" and lcomp.streaming
+                and lcomp.compress_method != "NONE")
+
+    def _compress(self, k, v, site, *, prefill, init, generator):
+        """compress_kv of one layer's [B,H,S,D] K/V (float32 math), back in
+        the cache's dtype."""
+        p0 = None if init is None else (
+            lambda which, shape: init((*site, which), shape))
+        kc, vc = simulated.compress_kv(
+            k.float(), v.float(), self.comp.layer(0), prefill=prefill, p0=p0,
+            generator=generator)
+        return kc.to(k.dtype), vc.to(v.dtype)
+
     def prefill(self, tokens: torch.Tensor, mask: torch.Tensor, *,
                 init=None, generator: torch.Generator | None = None):
         """Prompt pass -> (logits [B,S,V], stacked caches)."""
         positions = torch.clamp(torch.cumsum(mask, dim=1) - 1, min=0)
+        hook = None
+        if self.simulating:
+            def hook(layer, k, v):
+                return self._compress(k, v, ("sim_prefill", layer),
+                                      prefill=True, init=init,
+                                      generator=generator)
         return llama.forward_prefill(
             self.params, self.cfg, tokens, positions, mask, self.spec,
             compress=self.ecfg.mode == "fused", init=init,
-            generator=generator, use_lowrank=self.ecfg.use_lowrank)
+            generator=generator, use_lowrank=self.ecfg.use_lowrank,
+            kv_hook=hook)
+
+    def recompress(self, caches, end: int, *, step: int = 0, init=None,
+                   generator: torch.Generator | None = None):
+        """Simulated mode's recompression of the raw cache's first ``end``
+        tokens, in place: the newest ``streaming_gap`` of them with
+        ``stream_grouping``, else all of them."""
+        lcomp = self.comp.layer(0)
+        start = end - lcomp.streaming_gap if lcomp.stream_grouping else 0
+        for i in range(self.cfg.num_layers):
+            k, v = caches.k[i, :, :, start:end], caches.v[i, :, :, start:end]
+            kc, vc = self._compress(k, v, ("sim_recompress", step, i),
+                                    prefill=False, init=init,
+                                    generator=generator)
+            k.copy_(kc)
+            v.copy_(vc)
+        return caches
 
     def decode_step(self, caches, token, position, pad_start, *, step: int = 0,
                     init=None, generator: torch.Generator | None = None):
@@ -167,6 +219,10 @@ class InferenceEngine:
                 done = done | (nxt == eos)
             out.append(nxt)
             cur = nxt
+            if (self.simulating
+                    and (step_i + 1) % self.comp.layer(0).streaming_gap == 0):
+                self.recompress(caches, s + step_i + 1, step=step_i,
+                                init=init, generator=gen)
             if eos is not None and (step_i + 1) % self.ecfg.sync_every == 0:
                 if bool(done.all()):
                     break

@@ -45,7 +45,8 @@ _I64 = ctypes.c_int64
 # ctypes never truncates them to 32 bits).
 SIGNATURES = {
     "gear_quant_pack_tokens": [_P, _I, _P, _P, _P, _I64, _I, _I, _I, _P],
-    "gear_quant_pack_channels": [_P, _P, _P, _P, _I64, _I, _I, _I, _P],
+    "gear_quant_pack_channels": [_P, _I, _P, _P, _P, _I64, _I, _I64, _I64,
+                                 _I64, _I64, _I, _I, _I, _P],
     **{f"gear_decode_attention{form}_b{b}": [_P] * 29 + [_I] * 20 + [_P]
        for b in DECODE_BITS for form in ("", "_paged")},
     "gear_flash_decode": [_P] * 7 + [_I] * 8 + [_P],
@@ -139,8 +140,9 @@ def ptxas_usage(log: str) -> dict[str, tuple[int, int, int]]:
     """Registers a thread, spill stores and spill loads (bytes) of every
     kernel in a build log (``ptxas -v``), by name with its template
     arguments, e.g. ``decode_split_kernel<4,1,0,1>`` (bits, GQ, int8 bases,
-    paged), ``flash_split_kernel<4>`` (GQ) or ``token_kernel<bf16,4,1>``
-    (input type, bits, groups on lane boundaries)."""
+    paged), ``flash_split_kernel<4>`` (GQ), ``token_kernel<bf16,4,1>``
+    (input type, bits, groups on lane boundaries) or
+    ``channel_kernel<float,4>`` (input type, bits)."""
     usage, cur, spill = {}, None, (0, 0)
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)

@@ -38,13 +38,10 @@ def quant_pack_channels_plain(x: torch.Tensor, *, bits: int, group: int):
     return words, scale.transpose(-1, -2), mn.transpose(-1, -2)
 
 
-def _check_common(x: torch.Tensor, bits: int,
-                  dtypes=(torch.float32,)) -> None:
-    if x.dtype not in dtypes:
-        raise TypeError(f"expected {' or '.join(map(str, dtypes))} input, "
+def _check_common(x: torch.Tensor, bits: int) -> None:
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"expected torch.float32 or torch.bfloat16 input, "
                         f"got {x.dtype}")
-    if not x.is_contiguous():
-        raise ValueError("input must be contiguous")
     if bits not in (2, 4, 8):
         raise ValueError("bits must be one of 2, 4, 8")
     if x.shape[-1] % (32 // bits):
@@ -59,7 +56,9 @@ def quant_pack_tokens(x: torch.Tensor, *, bits: int, v_group: int):
         return quant_pack_tokens_plain(x, bits=bits, v_group=v_group)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    _check_common(x, bits, (torch.float32, torch.bfloat16))
+    _check_common(x, bits)
+    if not x.is_contiguous():
+        raise ValueError("input must be contiguous")
     *lead, d = x.shape
     if d % v_group:
         raise ValueError(f"head dim {d} not a multiple of v_group {v_group}")
@@ -83,27 +82,46 @@ def quant_pack_tokens(x: torch.Tensor, *, bits: int, v_group: int):
 
 
 def quant_pack_channels(x: torch.Tensor, *, bits: int, group: int):
-    """K-layout pack; see :func:`quant_pack_channels_plain` for shapes."""
+    """K-layout pack; see :func:`quant_pack_channels_plain` for shapes. The
+    kernel reads float32 or bf16 as it is given (both give the same words
+    and sidebands), x [S, D], [N, S, D] or [B, H, S, D] through its strides
+    (the model's K, a view of its [B, S, H, D] projection, needs no copy)
+    with contiguous channels and every row starting on 16 bytes."""
     if x.device.type == "cpu":
         return quant_pack_channels_plain(x, bits=bits, group=group)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
     _check_common(x, bits)
+    if not 2 <= x.dim() <= 4:
+        raise ValueError(f"expected [S, D], [N, S, D] or [B, H, S, D], got "
+                         f"{tuple(x.shape)}")
+    x4 = x[(None,) * (4 - x.dim())]
     *lead, s, d = x.shape
     if s % group:
         raise ValueError(f"length {s} not a multiple of group {group}")
-    if 4 * (group * d + 2 * d) > 227 * 1024:
-        raise ValueError(f"group {group} x head dim {d} exceeds shared memory")
-    nblk = x.numel() // (group * d)
-    words = torch.empty((*lead, s // group, group, d * bits // 32),
+    if x4.stride(-1) != 1 and d > 1:
+        raise ValueError("channels must be contiguous")
+    # the strides of batch, head and token (0 where the size is 1)
+    strides = [st if n > 1 else 0 for st, n in zip(x4.stride()[:3],
+                                                    x4.shape[:3])]
+    if x.data_ptr() % 16 or any(st * x.element_size() % 16 for st in strides):
+        raise ValueError("every row must start on 16 bytes: input pointer "
+                         "and strides")
+    b, h = x4.shape[:2]
+    wd = d * bits // 32
+    if b * h * (s // group) * -(-wd // min(wd, 256)) >= 2 ** 31:
+        raise ValueError("more than 2**31 - 1 groups: the kernel counts "
+                         "them in 32 bits")
+    words = torch.empty((*lead, s // group, group, wd),
                         dtype=torch.int32, device=x.device)
     scale = torch.empty((*lead, s // group, 1, d), dtype=torch.float32,
                         device=x.device)
     mn = torch.empty_like(scale)
     lib = _build.library()
     err = lib.gear_quant_pack_channels(
-        x.data_ptr(), words.data_ptr(), scale.data_ptr(), mn.data_ptr(),
-        nblk, group, d, bits, torch.cuda.current_stream(x.device).cuda_stream)
+        x.data_ptr(), int(x.dtype == torch.bfloat16), words.data_ptr(),
+        scale.data_ptr(), mn.data_ptr(), b * h, h, *strides, s,
+        group, d, bits, torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(err, "gear_quant_pack_channels")
     quant_pack_channels.launches += 1
     return words, scale, mn

@@ -1,5 +1,5 @@
 """Llama-family model with compressed-KV decode, PyTorch port of
-``gear_tpu/models/llama.py`` (the fused and raw paths).
+``gear_tpu/models/llama.py`` (the fused, raw and simulated paths).
 
   * Parameters are a plain dict: ``embed``, ``final_norm``, ``lm_head`` and
     ``layers``, a dict of per-layer tensors stacked on a leading axis, in
@@ -301,7 +301,7 @@ def forward_prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                     spec: CacheSpec | None, *, compress: bool = True,
                     init: InitFn | None = None,
                     generator: torch.Generator | None = None,
-                    use_lowrank: bool = True):
+                    use_lowrank: bool = True, kv_hook=None):
     """Run the prompt, return (logits [B,S,V] f32, caches).
 
     With ``spec`` and ``compress``, each layer's KV is compressed into a
@@ -309,6 +309,10 @@ def forward_prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     the layers are stacked. With ``compress=False`` a stacked
     RawLayerCache is built (the bf16 baseline); with no ``spec`` the stacked
     (k, v) pair.
+
+    ``kv_hook(layer, k, v) -> (k, v)`` runs after RoPE and BEFORE the prompt
+    attention (the simulated mode's compression): the prompt's logits see
+    the hooked K/V, and they are what gets cached.
     """
     h = params["embed"][tokens].to(cfg.dtype)
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
@@ -316,6 +320,8 @@ def forward_prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     for i in range(cfg.num_layers):
         lp = _layer_slice(params["layers"], i)
         q, k, v = _qkv(cfg, lp, h, cos, sin)
+        if kv_hook is not None:
+            k, v = kv_hook(i, k, v)
         attn = causal_attention(q, k, v, attn_mask, cfg.sliding_window)
         h = _finish_layer(cfg, lp, h, attn)
         if spec is None:

@@ -92,6 +92,88 @@ def test_token_pack_kernel_at_half_steps(cuda, bits):
         assert torch.equal(g, w)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("shape,group,bits,layout", [
+    # the three main paths' shapes: Llama-2-7B prefill (K as the model's
+    # strided view), Mistral-7B prefill, a serving admission
+    ((4, 32, 1024, 128), 64, 4, "bshd"), ((2, 8, 4352, 128), 64, 4, "bhsd"),
+    ((1, 32, 3008, 128), 64, 4, "bhsd"),
+    # rows past the registers' steps, ragged row slots, odd head dims, rows
+    # wider than a block (chunks of words), tiny groups
+    ((2, 4, 512, 128), 128, 2, "bshd"), ((1, 2, 280, 128), 70, 8, "bhsd"),
+    ((1, 3, 200, 96), 100, 4, "bshd"), ((1, 2, 60, 48), 10, 4, "bhsd"),
+    ((1, 1, 32, 2048), 8, 4, "bhsd"), ((1, 1, 12, 1152), 3, 8, "bhsd"),
+    ((3, 5, 64, 16), 64, 2, "bshd"), ((1, 1, 4, 8), 1, 8, "bhsd")])
+def test_channel_pack_kernel_bit_exact(cuda, dtype, shape, group, bits,
+                                       layout):
+    """B2 at either input type, contiguous or as a [B, H, S, D] view of
+    [B, S, H, D] memory: words, scales and minima equal the plain
+    version's, constant channels (the scale == 0 guard) included."""
+    b, h, s, d = shape
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape) + group)
+    x = torch.randn(shape, generator=gen, device=cuda).to(dtype)
+    x[0, 0, :group, : min(d, 5)] = 0.75
+    x[-1, -1, s - group:, -1] = -2.0
+    if layout == "bshd":
+        x = x.transpose(1, 2).contiguous().transpose(1, 2)
+    before = TP.quant_pack_channels.launches
+    got = TP.quant_pack_channels(x, bits=bits, group=group)
+    want = TP.quant_pack_channels_plain(x, bits=bits, group=group)
+    assert TP.quant_pack_channels.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and torch.equal(g, w)
+    assert float(got[1][0, 0, 0, 0, 0]) == 0.0
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+def test_channel_pack_kernel_at_half_steps(cuda, bits):
+    """B2 takes the code from the step's reciprocal and divides only near a
+    half-integer: channels whose values sit at (k + 1/2) steps above the
+    group's minimum and one ulp either side, over steps from 1 to the ends
+    of the float range, pack as the plain version's IEEE quotient does."""
+    levels, group = (1 << bits) - 1, 64
+    inv = torch.tensor(1.0 / levels, dtype=torch.float32)
+    cols = []
+    for hi in (float(levels), 3.7, 1e-3, 1e-36, 1e31, 3e31):
+        step = torch.tensor(hi, dtype=torch.float32) * inv
+        k = torch.arange(group - 2, dtype=torch.float32) % levels
+        mid = (k + 0.5) * step
+        for x in (mid, torch.nextafter(mid, mid + step),
+                  torch.nextafter(mid, mid - step)):
+            col = torch.cat([torch.zeros(1), x.clamp(0.0, hi),
+                             torch.tensor([hi], dtype=torch.float32)])
+            cols += [col, -col]
+    x = torch.stack((cols * 4)[:128], dim=1).to(cuda)  # [group, 128]
+    got = TP.quant_pack_channels(x, bits=bits, group=group)
+    want = TP.quant_pack_channels_plain(x, bits=bits, group=group)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_channel_pack_kernel_refuses(cuda):
+    """What B2 does not take raises before any launch."""
+    x = torch.randn((2, 4, 128, 64), device=cuda)
+    before = TP.quant_pack_channels.launches
+    with pytest.raises(ValueError, match="multiple of group"):
+        TP.quant_pack_channels(x[:, :, :100], bits=4, group=64)
+    with pytest.raises(ValueError, match="16 bytes"):
+        TP.quant_pack_channels(x.flatten()[1:8193].view(1, 128, 64), bits=4,
+                               group=64)
+    with pytest.raises(ValueError, match="16 bytes"):  # rows 520 B apart
+        TP.quant_pack_channels(torch.randn((64, 130), device=cuda)[:, :128],
+                               bits=4, group=64)
+    with pytest.raises(ValueError, match="contiguous"):
+        TP.quant_pack_channels(x.transpose(-1, -2), bits=4, group=64)
+    with pytest.raises(ValueError, match="head dim"):
+        TP.quant_pack_channels(x[..., :60].contiguous(), bits=4, group=64)
+    with pytest.raises(ValueError, match="expected"):
+        TP.quant_pack_channels(x[None], bits=4, group=64)
+    with pytest.raises(TypeError):
+        TP.quant_pack_channels(x.half(), bits=4, group=64)
+    assert TP.quant_pack_channels.launches == before
+
+
 @pytest.mark.parametrize("bits,hkv,hq,pad", [
     (2, 4, 4, None), (4, 4, 4, [0, 100]), (8, 2, 8, [37, 0]),
 ])
@@ -130,6 +212,41 @@ def test_fused_engine_launches_kernels(cuda):
     assert counts["decode_attention"] == cfg.num_layers * 19
     assert counts["quant_pack_tokens"] == cfg.num_layers
     assert counts["quant_pack_channels"] == cfg.num_layers
+
+
+def test_simulated_engine_on_the_card_matches_the_cpu(cuda):
+    """Simulated mode on a small model: the card (the flash kernel on every
+    decode step) and the CPU (the plain path) with the same inits give the
+    same greedy tokens across three recompressions (int8 GEAR, so that the
+    bf16 projections' rounding, which differs between the two, moves no
+    code far)."""
+    cfg = llama.ModelConfig.tiny(head_dim=32, hidden_size=128, num_heads=4)
+    params = llama.init_params(cfg, device=cuda)
+    cpu_params = {k: ({kk: vv.cpu() for kk, vv in v.items()}
+                      if isinstance(v, dict) else v.cpu())
+                  for k, v in params.items()}
+    comp = CompressionConfig(num_layers=cfg.num_layers,
+                             compress_method="GEAR", quantize_bit=8,
+                             group_size=16, rank=2, prefill_rank=4, loop=2,
+                             left=0.1, streaming_gap=4)
+
+    def init(site, shape):
+        gen = torch.Generator().manual_seed(hash(site) % (1 << 31))
+        return torch.rand(shape, generator=gen)
+
+    prompts = [[1, 5, 9, 12, 3, 8, 2, 6, 4, 7, 11], [3, 7, 10]]
+    outs = {}
+    for dev, p in ((cuda, params), ("cpu", cpu_params)):
+        eng = InferenceEngine(cfg, p, comp,
+                              EngineConfig(max_len=64, mode="simulated"),
+                              batch_size=2, device=dev)
+        kernels.reset_launch_counts()
+        outs[str(dev)] = eng.generate(prompts, 14, init=init)
+        if dev is cuda:
+            counts = kernels.launch_counts()
+            assert counts["flash_decode"] == cfg.num_layers * 13
+            assert counts["decode_attention"] == 0
+    assert outs["cuda"] == outs["cpu"]
 
 
 GEAR_CASES = {

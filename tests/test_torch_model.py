@@ -213,8 +213,7 @@ def test_entry_points_refuse_silent_cpu(tiny, monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tllama.init_params(tcfg)
     with pytest.raises(NotImplementedError):
-        TEngine(tcfg, tparams, comp, TEngineConfig(max_len=64,
-                                                   mode="simulated"),
+        TEngine(tcfg, tparams, comp, TEngineConfig(max_len=64, mode="h2o"),
                 batch_size=2, device="cpu")
 
 

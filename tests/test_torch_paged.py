@@ -297,6 +297,40 @@ def test_parked_and_pageless_rows_do_not_flush(rng):
     assert tseqs.host_lens[:, TP.RESID].tolist() == [15, 15, 16]
 
 
+def test_full_pageless_row_corrupts_the_reference_and_the_port_refuses(rng):
+    """A live row whose residual tier is full and whose tail page was never
+    allocated, given one more token: gear_tpu.paged.append_paged drops the
+    write (slot ``group`` lies past the tier), leaves the pool as it was and
+    moves resid_len to group + 1, a state no later step reads correctly.
+    The port refuses the append instead, and changes nothing."""
+    jps, tps = _specs(n_pages=12, page_blocks=1)
+    g = tps.spec.group
+    live = [True, False, True]
+    jpool, jseqs, tpool, tseqs = _build_both(
+        rng, jps, tps, [16 + 4, 16 + 15, 16 + 6], [[5, 3, 8], [6], [2]], 10,
+        live=live)
+    assert int(jseqs.resid_len[2]) == g and int(jseqs.block_table[2, 1]) < 0
+    x = np.full((3, 2, 1, 32), 7.0, np.float32)
+    jpool2, jseqs2 = P.append_paged(jps, jpool, jseqs, jnp.asarray(x),
+                                    jnp.asarray(x), key=jax.random.PRNGKey(9),
+                                    live=jnp.asarray(live))
+    assert np.asarray(jseqs2.resid_len).tolist() == [15, 15, g + 1]
+    assert np.asarray(jseqs2.comp_len).tolist() == [16, 16, 16]
+    for f in ("k_resid", "v_resid"):  # row 2's token went nowhere
+        np.testing.assert_array_equal(np.asarray(getattr(jseqs2, f))[2],
+                                      np.asarray(getattr(jseqs, f))[2])
+    for f in TP.POOL_FIELDS:
+        np.testing.assert_array_equal(np.asarray(getattr(jpool2, f)),
+                                      np.asarray(getattr(jpool, f)))
+    lens = tseqs.host_lens.copy()
+    resid = tseqs.k_resid.clone()
+    with pytest.raises(ValueError, match="tail page"):
+        TP.append_paged(tps, tpool, tseqs, torch.from_numpy(x),
+                        torch.from_numpy(x), live=live)
+    assert np.array_equal(tseqs.host_lens, lens)
+    assert torch.equal(tseqs.k_resid, resid)
+
+
 def test_prefill_paged_refuses_too_few_pages():
     _, tps = _specs()
     pool, seqs = TP.init_pool(tps), TP.init_seqs(tps, 1)
