@@ -26,7 +26,11 @@ Phases, each printing lines of its own:
      caches (32 heads and 8 kv / 32 q heads, 1,930 and 4,400 valid tokens,
      left padding, a window), with ``scaled_dot_product_attention`` timed
      beside it as the library's call for the same function;
-  5. end to end through ``GearLM``, seeded random bf16 weights, group 64,
+  5. end to end through ``GearLM``, seeded random bf16 weights at full
+     width and 8 of the 32 layers (``EARLIER_DEPTH``: the earlier slices'
+     7B paths, 5, 6 and 9, run at a cut depth so that the whole script
+     stays near five minutes; the evaluation slice's 14 keeps all 32),
+     group 64,
      rank 2, prefill rank 4, loop 3, 80 new tokens, in ``fused`` and ``raw``
      mode, plus int8 fused vs raw greedy agreement:
      Mistral-7B (32 layers, 8 kv heads, window 4096) with GEAR int4, batch
@@ -36,7 +40,7 @@ Phases, each printing lines of its own:
      just after: fused mode must have gone through the decode and pack
      kernels, raw mode through the flash kernel;
   6. simulated mode (the accuracy path) through ``GearLM`` at the full
-     width and depth of Llama-2-7B, GEAR int4, batch 4, prompts of ~1,000
+     width of Llama-2-7B (depth cut), GEAR int4, batch 4, prompts of ~1,000
      tokens, 130 new tokens (the whole cache recompressed after decode steps
      63 and 127; max_len 1216, since 1024 + 129 tokens overflow 1152): one
      layer's prompt ``compress_kv`` on the card against the CPU, method NONE
@@ -54,7 +58,7 @@ Phases, each printing lines of its own:
      window that cuts into one row's prefix and not another's, pages of 64
      and of 256 tokens, and the shapes of the serving path below;
   9. continuous-batching serving through ``PagedServingEngine`` at the full
-     width and depth of Llama-2-7B, GEAR int4, 8 slots over a pool of 96
+     width of Llama-2-7B (depth cut), GEAR int4, 8 slots over a pool of 96
      pages of 256 tokens, 12 requests from a numpy seed (the first 8 prompts
      near 3,000 tokens, so that the 8th admission waits for pages); launch
      counts set to 0 just before and read just after; mid-run one layer's
@@ -63,7 +67,31 @@ Phases, each printing lines of its own:
   10. a small model served by ``PagedServingEngine`` on the card (kernels) and
      on the CPU (plain path) in lockstep, with a pool small enough to force
      a preemption: the logits must agree; then the dense ``ServingEngine``
-     on the card against the paged one.
+     on the card against the paged one;
+  11. B1-B4 at the shapes the evaluation path gives them (the mid-scale
+     checkpoint: 8 rows, 6 kv / 12 q heads, head_dim 64, group 32, a
+     128-token bucket and 47 steps; B4 also at the CLI's head_dim 32);
+  12. the accuracy protocol (``tools/acc_run.py``) on runs/mid_arith, the
+     checkpoint gear_tpu trained, loaded with ml_dtypes blocked: NONE,
+     GEAR-int4, GEARL-int4, GEAR-int2 and KIVI-int4 in simulated mode and
+     GEAR / GEARL int4 in fused mode, n=150, each accuracy beside the TPU
+     record (runs/mid_arith/accuracy_sweep.json); NONE >= 0.20, every int4
+     configuration within 0.06 of NONE, B1-B3 launched by the fused runs
+     and B4 by the simulated ones; NONE raw on the card against the CPU
+     over 16 problems (a problem may part only where the two devices'
+     tokens are the top two on both and that decode step's logits agree
+     within the lockstep limit: a bf16 near-tie); then
+     ``python -m gear_tpu_torch.eval.run`` with its turnkey defaults;
+  13. ``eval.synth.train`` on the card (the tiny scale, 30 steps: the loss
+     falls), the checkpoint round trip bit for bit, greedy generation from
+     the trained params;
+  14. engine modes h2o (256 heavy-hitter + 768 recent slots) and sink (4
+     sinks, window 1020) at the full width and depth of Llama-2-7B, batch
+     4, prompts of ~1,000 tokens, 80 new tokens: eviction and the ring's
+     wrap from the first decode step, first tokens equal to raw mode's,
+     finite logits, step times beside raw mode's;
+  15. a small model in modes h2o and sink on the card and on the CPU in
+     lockstep through eviction and the wrap: the logits must agree.
 
 Any failed check raises, so the script exits non-zero. The second-to-last
 line is the kernels' JSON record; the last is
@@ -72,6 +100,7 @@ also go to gear_tpu_torch/_build/.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import subprocess
@@ -84,6 +113,7 @@ OUT = ROOT / "gear_tpu_torch" / "_build"
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
+EARLIER_DEPTH = 8  # layers (of 32) of the earlier slices' 7B paths
 TOL_DECODE = dict(rtol=1e-3, atol=1e-4)  # both float32; sum order differs
 
 
@@ -200,8 +230,6 @@ PACK_CASES = [
 
 
 def phase_pack(torch, timer, record):
-    from gear_tpu_torch.kernels import pack as TP
-
     d, g = 128, 64
     gen = torch.Generator(device="cuda").manual_seed(1)
     for batch, hkv, s, widths, cleaned, dtype, row in PACK_CASES:
@@ -217,38 +245,53 @@ def phase_pack(torch, timer, record):
         xk = (x.reshape(batch, hkv, s, d).transpose(1, 2).contiguous()
               .transpose(1, 2) if dtype == "bfloat16" else x)
         for bits in widths:
-            wd = d * bits // 32
-            for kern, plain, kw, side, xin in (
-                    (TP.quant_pack_tokens, TP.quant_pack_tokens_plain,
-                     dict(v_group=g), n * s * (d // g), x),
-                    (TP.quant_pack_channels, TP.quant_pack_channels_plain,
-                     dict(group=g), n * (s // g) * d, xk)):
-                got = kern(xin, bits=bits, **kw)
-                want = plain(xin, bits=bits, **kw)
-                torch.cuda.synchronize()
-                for a, b in zip(got, want):
-                    check(a.shape == b.shape and torch.equal(a, b),
-                          f"{kern.__name__} bits={bits} [{n}x{s}x{d}] "
-                          "bit-equal to plain")
-                err = max(float((a.double() - b.double()).abs().max())
-                          for a, b in zip(got, want))
-                ms = timer(lambda: kern(xin, bits=bits, **kw), names=(
-                    "token_kernel" if kern is TP.quant_pack_tokens
-                    else "channel_kernel",))
-                plain_ms = timer(lambda: plain(xin, bits=bits, **kw), iters=5)
-                nbytes = (xin.numel() * xin.element_size() + n * s * wd * 4
-                          + 2 * side * 4)
-                bms, by = bound_ms(nbytes, 8 * xin.numel())
-                log(f"pack {kern.__name__} bits={bits} [{n}x{s}x{d}] {dtype}"
-                    f"{' outlier-cleaned' if cleaned else ''} bit-equal "
-                    f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
-                    f"bound_ms={bms:.4f} ({by})")
+            note = dtype + (" outlier-cleaned" if cleaned else "")
+            for res in pack_cases(torch, timer, x, xk, bits, g, note):
                 if row is not None:
-                    record[kern.__name__ + row] = dict(
-                        max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                        bound_ms=bms, bound_by=by, library_ms=None)
+                    record[res.pop("name") + row] = res
         del x, xk
     k_route_trace(torch)
+
+
+def pack_cases(torch, timer, x, xk, bits, g, note):
+    """Both pack kernels against their plain versions, bit-equal, and
+    timed: B3 (``quant_pack_tokens``) on ``x`` [N, S, D] with V groups of
+    ``g`` channels, B2 (``quant_pack_channels``) on ``xk`` (the same values,
+    as the model hands them) with groups of ``g`` tokens. Returns the two
+    rows for the kernels' record, each with its wrapper's name."""
+    from gear_tpu_torch.kernels import pack as TP
+
+    n, s, d = x.shape
+    wd = d * bits // 32
+    rows = []
+    for kern, plain, kw, side, xin in (
+            (TP.quant_pack_tokens, TP.quant_pack_tokens_plain,
+             dict(v_group=g), n * s * (d // g), x),
+            (TP.quant_pack_channels, TP.quant_pack_channels_plain,
+             dict(group=g), n * (s // g) * d, xk)):
+        got = kern(xin, bits=bits, **kw)
+        want = plain(xin, bits=bits, **kw)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            check(a.shape == b.shape and torch.equal(a, b),
+                  f"{kern.__name__} bits={bits} [{n}x{s}x{d}] g={g} "
+                  "bit-equal to plain")
+        err = max(float((a.double() - b.double()).abs().max())
+                  for a, b in zip(got, want))
+        ms = timer(lambda: kern(xin, bits=bits, **kw), names=(
+            "token_kernel" if kern is TP.quant_pack_tokens
+            else "channel_kernel",))
+        plain_ms = timer(lambda: plain(xin, bits=bits, **kw), iters=5)
+        nbytes = (xin.numel() * xin.element_size() + n * s * wd * 4
+                  + 2 * side * 4)
+        bms, by = bound_ms(nbytes, 8 * xin.numel())
+        log(f"pack {kern.__name__} bits={bits} [{n}x{s}x{d}] g={g} {note} "
+            f"bit-equal kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"bound_ms={bms:.4f} ({by})")
+        rows.append(dict(name=kern.__name__, max_abs_err=err, ms=ms,
+                         plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                         library_ms=None))
+    return rows
 
 
 def k_route_trace(torch):
@@ -334,14 +377,13 @@ DECODE_CASES = [
 
 
 def decode_case(torch, timer, gen, name, kw, hkv, hq, pad, window, *,
-                b=4, t=2048, n_prefill=1900, n_append=30):
+                b=4, t=2048, n_prefill=1900, n_append=30, d=128, g=64):
     """Build a full-width cache with the port's own prefill + appends across
     a flush, hold the kernel against the plain ``cache.attend`` on it, and
     time both. Returns the row for the kernels' record."""
     from gear_tpu_torch import cache as TC
     from gear_tpu_torch.kernels import decode as TK
 
-    d, g = 128, 64
     spec = TC.CacheSpec(batch=b, num_kv_heads=hkv, head_dim=d, max_len=t,
                         **{"bits": 4, "group": g, "rank": 2,
                            "prefill_rank": 4, "lowrank_loop": 3, **kw})
@@ -399,8 +441,9 @@ def decode_case(torch, timer, gen, name, kw, hkv, hq, pad, window, *,
         ops += hkv * gq * (live * (4 * d + 4 * r) + rl * 4 * d
                            + blocks * 4 * ko)
     bms, by = bound_ms(nbytes, ops)
-    log(f"decode [{name}] bits={spec.bits} hkv={hkv} hq={hq} pad={pad} "
-        f"window={window} max_len={t} comp={c} resid={rl} ko_store={ko} "
+    log(f"decode [{name}] bits={spec.bits} hkv={hkv} hq={hq} d={d} g={g} "
+        f"pad={pad} window={window} max_len={t} comp={c} resid={rl} "
+        f"ko_store={ko} "
         f"base_bits={spec.base_bits} max_abs_err={err:.3e} "
         f"max_rel_err={rel:.3e} tol(rtol={TOL_DECODE['rtol']}, "
         f"atol={TOL_DECODE['atol']}) {'ok' if ok else 'FAIL'} "
@@ -451,73 +494,78 @@ FLASH_CASES = [  # (kv heads, q heads, batch, max_len, length, pad, window, row)
 ]
 
 
-def phase_flash(torch, timer, record):
+def flash_case(torch, timer, gen, hkv, hq, b, t, length, pad, window, *,
+               d=128):
+    """Hold the flash kernel against the plain ``raw_attend`` over a random
+    bf16 raw cache, time both and ``scaled_dot_product_attention`` for the
+    same function. Returns the row for the kernels' record."""
     import torch.nn.functional as F
 
     from gear_tpu_torch import cache as TC
     from gear_tpu_torch.kernels import flash as TF
     from gear_tpu_torch.models import llama
 
-    d = 128
+    spec = TC.CacheSpec(batch=b, num_kv_heads=hkv, head_dim=d, max_len=t)
+    k = torch.randn((b, hkv, t, d), generator=gen, device="cuda").bfloat16()
+    v = torch.randn((b, hkv, t, d), generator=gen, device="cuda").bfloat16()
+    c = llama.RawLayerCache(k=k, v=v, length=length)
+    q = torch.randn((b, hq, 1, d), generator=gen, device="cuda")
+    gq = hq // hkv
+    pad_t = None if pad is None else torch.tensor(
+        pad, dtype=torch.int32, device="cuda")
+    kwargs = dict(pad_start=pad_t, window=window)
+    got = TF.raw_attend_flash(spec, c, q, **kwargs)
+    want = llama.raw_attend(spec, c, q, **kwargs)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    check(bool(torch.isfinite(got).all()), "flash output finite")
+    ok = torch.allclose(got, want, **TOL_DECODE)
+    ms = timer(lambda: TF.raw_attend_flash(spec, c, q, **kwargs),
+               names=FLASH_KERNELS)
+    plain_ms = timer(lambda: llama.raw_attend(spec, c, q, **kwargs), iters=5)
+    # one PyTorch call for the same function (q rounded to bf16 there)
+    lives = live_tokens(pad, window, length, length, b)
+    pos = torch.arange(t, device="cuda")
+    first = torch.tensor([length - n for n in lives], device="cuda")
+    mask = ((pos[None] >= first[:, None]) & (pos[None] < length))
+    mask = mask[:, None, None, :]
+    qb = q.bfloat16()
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qb, k, v, attn_mask=mask,
+                                              enable_gqa=gq > 1)
+
+    lib = sdpa().float()
+    torch.cuda.synchronize()
+    lib_err = float((lib - want).abs().max())
+    check(lib_err < 2e-2, "the library call computes the same function "
+                          "(bf16 rounding apart)")
+    lib_ms = timer(sdpa)
+    nbytes = sum(hkv * (2 * n * d * 2 + 2 * gq * d * 4) for n in lives)
+    ops = sum(hkv * gq * n * 4 * d for n in lives)
+    bms, by = bound_ms(nbytes, ops)
+    log(f"flash hkv={hkv} hq={hq} d={d} batch={b} max_len={t} "
+        f"length={length} pad={pad} window={window} max_abs_err={err:.3e} "
+        f"tol(rtol={TOL_DECODE['rtol']}, atol={TOL_DECODE['atol']}) "
+        f"{'ok' if ok else 'FAIL'} kernel_ms={ms:.4f} "
+        f"plain_ms={plain_ms:.4f} bound_ms={bms:.4f} ({by}, {nbytes} "
+        f"bytes) library_ms={lib_ms:.4f} (scaled_dot_product_attention, "
+        f"bf16 q, bool mask; |lib - plain| max {lib_err:.2e})")
+    check(ok, f"flash kernel within tolerance (hkv={hkv} d={d} pad={pad} "
+              f"window={window})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bms,
+                bound_by=by, library_ms=lib_ms)
+
+
+def phase_flash(torch, timer, record):
     gen = torch.Generator(device="cuda").manual_seed(4)
     worst = 0.0
     for hkv, hq, b, t, length, pad, window, row in FLASH_CASES:
-        spec = TC.CacheSpec(batch=b, num_kv_heads=hkv, head_dim=d, max_len=t)
-        k = torch.randn((b, hkv, t, d), generator=gen,
-                        device="cuda").bfloat16()
-        v = torch.randn((b, hkv, t, d), generator=gen,
-                        device="cuda").bfloat16()
-        c = llama.RawLayerCache(k=k, v=v, length=length)
-        q = torch.randn((b, hq, 1, d), generator=gen, device="cuda")
-        gq = hq // hkv
-        pad_t = None if pad is None else torch.tensor(
-            pad, dtype=torch.int32, device="cuda")
-        kwargs = dict(pad_start=pad_t, window=window)
-        got = TF.raw_attend_flash(spec, c, q, **kwargs)
-        want = llama.raw_attend(spec, c, q, **kwargs)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        worst = max(worst, err)
-        check(bool(torch.isfinite(got).all()), "flash output finite")
-        ok = torch.allclose(got, want, **TOL_DECODE)
-        ms = timer(lambda: TF.raw_attend_flash(spec, c, q, **kwargs),
-                   names=FLASH_KERNELS)
-        plain_ms = timer(lambda: llama.raw_attend(spec, c, q, **kwargs),
-                         iters=5)
-        # one PyTorch call for the same function (q rounded to bf16 there)
-        lives = live_tokens(pad, window, length, length, b)
-        pos = torch.arange(t, device="cuda")
-        first = torch.tensor([length - n for n in lives], device="cuda")
-        mask = ((pos[None] >= first[:, None]) & (pos[None] < length))
-        mask = mask[:, None, None, :]
-        qb = q.bfloat16()
-
-        def sdpa():
-            return F.scaled_dot_product_attention(qb, k, v, attn_mask=mask,
-                                                  enable_gqa=gq > 1)
-
-        lib = sdpa().float()
-        torch.cuda.synchronize()
-        lib_err = float((lib - want).abs().max())
-        check(lib_err < 2e-2, "the library call computes the same function "
-                              "(bf16 rounding apart)")
-        lib_ms = timer(sdpa)
-        nbytes = sum(hkv * (2 * n * d * 2 + 2 * gq * d * 4) for n in lives)
-        ops = sum(hkv * gq * n * 4 * d for n in lives)
-        bms, by = bound_ms(nbytes, ops)
-        log(f"flash hkv={hkv} hq={hq} batch={b} max_len={t} length={length} "
-            f"pad={pad} window={window} max_abs_err={err:.3e} "
-            f"tol(rtol={TOL_DECODE['rtol']}, atol={TOL_DECODE['atol']}) "
-            f"{'ok' if ok else 'FAIL'} kernel_ms={ms:.4f} "
-            f"plain_ms={plain_ms:.4f} bound_ms={bms:.4f} ({by}, {nbytes} "
-            f"bytes) library_ms={lib_ms:.4f} (scaled_dot_product_attention, "
-            f"bf16 q, bool mask; |lib - plain| max {lib_err:.2e})")
-        check(ok, f"flash kernel within tolerance (hkv={hkv} pad={pad} "
-                  f"window={window})")
+        res = flash_case(torch, timer, gen, hkv, hq, b, t, length, pad,
+                         window)
+        worst = max(worst, res["max_abs_err"])
         if row:
-            record[row] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                               bound_ms=bms, bound_by=by, library_ms=lib_ms)
-        del k, v, c
+            record[row] = res
     record["flash_decode"]["max_abs_err"] = worst
 
 
@@ -665,7 +713,7 @@ def phase_e2e(torch, tag, cfg, method, batch, lens, n_new, max_len,
 
 def phase_simulated(torch, cfg):
     """Simulated mode (the accuracy path) through ``GearLM`` at the full
-    width and depth of Llama-2-7B, seeded random bf16 weights, GEAR int4
+    width of Llama-2-7B, seeded random bf16 weights, GEAR int4
     (left 0.02, group 64, rank 2, prefill rank 4, loop 3), stream_grouping
     off, batch 4, prompts of ~1,000 tokens, 130 new tokens: the prompt's K/V
     compressed inside the prefill, the whole cache again after decode steps
@@ -686,7 +734,7 @@ def phase_simulated(torch, cfg):
     t0 = time.perf_counter()
     params = llama.init_params(cfg, seed=0)
     torch.cuda.synchronize()
-    log(f"simulated Llama-2-7B: layers {cfg.num_layers} (depth not cut), "
+    log(f"simulated Llama-2-7B: layers {cfg.num_layers} of 32, "
         f"GEAR int4 left 0.02 group 64 rank 2 prefill rank 4 loop 3, "
         f"streaming_gap {gap}, stream_grouping off; batch {batch}, prompts "
         f"{lens}, {n_new} new tokens, max_len {max_len}; random init "
@@ -1008,7 +1056,7 @@ SERVE_N_SLOTS, SERVE_N_PAGES, SERVE_PAGE_BLOCKS, SERVE_MAX_LEN = 8, 96, 4, 4096
 
 def phase_serving(torch, cfg, timer, record):
     """Continuous-batching serving through ``PagedServingEngine`` at the full
-    width and depth of one model: the main path of the paged slice. Mid-run
+    width of one model: the main path of the paged slice. Mid-run
     the paged kernel is held against its plain version and timed on the live
     pool: those are its times in the kernels' record. Returns the launch
     counts of the run."""
@@ -1046,7 +1094,7 @@ def phase_serving(torch, cfg, timer, record):
                            rng.integers(300, 1501, 4)]).tolist()
     news = rng.integers(70, 201, 12).tolist()
     log(f"e2e serving: Llama-2-7B hidden {cfg.hidden_size}, layers {n_l} "
-        f"(depth not cut), kv heads {cfg.num_kv_heads}, {cfg.dtype}; GEAR "
+        f"of 32, kv heads {cfg.num_kv_heads}, {cfg.dtype}; GEAR "
         f"int4 group 64 rank 2 prefill rank 4 loop 3 left 0.02 "
         f"({spec.outliers_per_block} outliers per block, {spec.ko_store} "
         f"stored); {SERVE_N_SLOTS} slots, max_len {SERVE_MAX_LEN}, "
@@ -1409,6 +1457,422 @@ def phase_small(torch, method):
     check(worst < 5e-2, "small model: card and CPU logits agree")
 
 
+MID_ARITH = ROOT / "runs" / "mid_arith"
+
+
+def phase_eval_kernels(torch, timer, record):
+    """B1-B4 at the shapes the evaluation path gives them on the mid-scale
+    checkpoint (8 rows, 6 kv / 12 q heads, head_dim 64, group 32, prompts
+    in buckets of 96 and 128 tokens, 47 decode steps, max_len 512), and B4
+    at the CLI's tiny_arith_hf shapes (head_dim 32, 4 kv / 8 q heads,
+    max_len 2048, 128 + 255 tokens)."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    pad = [22, 36, 30, 27, 33, 24, 29, 31]  # prompts of 92-106 in 128
+    eval_shape = dict(b=8, t=512, n_prefill=128, n_append=47, d=64, g=32)
+    for row, name, kw in (
+            ("decode_attention_eval", "gearl int4, eval path shapes", {}),
+            ("decode_attention_eval_gear", "gear int4, eval path shapes",
+             dict(outliers_per_block=40))):
+        record[row] = decode_case(torch, timer, gen, name, kw, 6, 12, pad,
+                                  None, **eval_shape)
+    # the GEARL prefill hands the packs the model's bf16 K and V: V
+    # contiguous, K a [B, H, S, D] view of [B, S, H, D] memory
+    v = torch.randn((48, 128, 64), generator=gen, device="cuda").bfloat16()
+    k = torch.randn((8, 128, 6, 64), generator=gen, device="cuda").bfloat16()
+    for res in pack_cases(torch, timer, v, k.transpose(1, 2), 4, 32,
+                          "bfloat16, eval path shapes"):
+        record[res.pop("name") + "_eval"] = res
+    record["flash_decode_eval"] = flash_case(
+        torch, timer, gen, 6, 12, 8, 512, 175, pad, None, d=64)
+    record["flash_decode_eval_d32"] = flash_case(
+        torch, timer, gen, 4, 8, 8, 2048, 383, [34, 30, 29, 33, 24, 31, 27,
+                                                 28], None, d=32)
+
+
+LOCKSTEP_LIMIT = 5e-2  # max |card - CPU| / max |CPU| logits, bf16 weights
+
+
+def card_vs_cpu_predictions(torch, cfg, params, rows):
+    """Greedy answers of NONE in raw mode (the protocol's prompts, batch 8,
+    48 new tokens) on the card and on the CPU, from the same bf16 weights:
+    each device decodes its own greedy path by the steps
+    ``InferenceEngine.generate`` takes (one prefill, then ``decode_step``),
+    and every step's logits are kept. Returns the number of equal
+    predictions and, for each problem where they part, a dict: its index,
+    the first differing token j, the card's and the CPU's token there, the
+    top two tokens on each device at the step that chose token j (both
+    devices saw the same prefix up to it), that step's top-two gap on each
+    and its max |card - CPU| / max |CPU| logits."""
+    from gear_tpu_torch.config import CompressionConfig
+    from gear_tpu_torch.engine import EngineConfig, InferenceEngine
+    from gear_tpu_torch.eval import harness, synth
+    from gear_tpu_torch.tools import acc_run
+
+    tok = synth.CharTokenizer()
+    prompts = [tok.encode(harness.GSM8K.build_prompt("", r["question"]))
+               for r in rows]
+    comp = CompressionConfig(num_layers=cfg.num_layers,
+                             compress_method="NONE")
+    on = {"cuda": params, "cpu": {
+        k: ({kk: vv.cpu() for kk, vv in v.items()} if isinstance(v, dict)
+            else v.cpu()) for k, v in params.items()}}
+    toks, steps = {}, {}  # per device: tokens [n][T], logits [n][T, V]
+    for dev, p in on.items():
+        eng = InferenceEngine(cfg, p, comp, EngineConfig(
+            max_len=acc_run.MAX_LEN, mode="raw"), batch_size=8,
+            device=None if dev == "cuda" else dev)
+        toks[dev], steps[dev] = [], []
+        for i in range(0, len(prompts), 8):
+            batch = prompts[i:i + 8]
+            s = eng.bucket_len(max(len(t) for t in batch))
+            tokens, mask = eng.left_pad(batch, eng.ecfg.pad_token_id, s)
+            with torch.no_grad():
+                logits, caches = eng.prefill(tokens, mask)
+                prompt_len = mask.sum(dim=1).to(torch.int32)
+                pad_start = (s - prompt_len).to(torch.int32)
+                lg = [logits[:, -1]]
+                out = [lg[0].argmax(-1)]
+                for step in range(acc_run.MAX_NEW_TOKENS - 1):
+                    nxt, step_lg, caches = eng.decode_step(
+                        caches, out[-1], prompt_len + step, pad_start,
+                        step=step)
+                    lg.append(step_lg)
+                    out.append(nxt)
+            toks[dev] += torch.stack(out, 1).cpu().tolist()
+            steps[dev] += torch.stack(lg, 1).float().cpu().unbind(0)
+
+    def pred(t):
+        return harness.GSM8K.pred_fn(tok.decode(t).split("Question:")[0])
+
+    agree, parts = 0, []
+    for i, (a, b) in enumerate(zip(toks["cuda"], toks["cpu"])):
+        if pred(a) == pred(b):
+            agree += 1
+            continue
+        j = next(n for n, (x, y) in enumerate(zip(a, b)) if x != y)
+        lg_card, lg_cpu = steps["cuda"][i][j], steps["cpu"][i][j]
+        top = {"card": torch.topk(lg_card, 2), "cpu": torch.topk(lg_cpu, 2)}
+        parts.append({
+            "problem": i, "token": j, "card": a[j], "cpu": b[j],
+            "top2": {d: t.indices.tolist() for d, t in top.items()},
+            "gap": {d: round(float(t.values[0] - t.values[1]), 4)
+                    for d, t in top.items()},
+            "logit_err": float((lg_card - lg_cpu).abs().max()
+                               / lg_cpu.abs().max())})
+    return agree, parts
+
+
+def phase_eval(torch, counts):
+    """The accuracy protocol on the card: the mid-scale checkpoint trained
+    by gear_tpu (runs/mid_arith, bf16), loaded with ml_dtypes blocked, the
+    acc_run matrix in simulated mode and GEAR / GEARL int4 in fused mode,
+    zero-shot, greedy, batch 8, 48 new tokens, max_len 512, n=150; the
+    record of the same protocol on a TPU beside each figure. Then the
+    port's predictions on the card against its predictions on the CPU
+    (NONE, raw mode, 16 problems), and the CLI with its turnkey defaults."""
+    from gear_tpu_torch import kernels
+    from gear_tpu_torch.eval import run as evalrun
+    from gear_tpu_torch.tools import acc_run
+
+    t_phase = time.perf_counter()
+    sys.modules["ml_dtypes"] = None  # the checkpoint must load without it
+    try:
+        import ml_dtypes  # noqa: F401
+        blocked = False
+    except ImportError:
+        blocked = True
+    check(blocked, "eval: ml_dtypes cannot be imported")
+    t0 = time.perf_counter()
+    cfg, params, rows = acc_run.load_checkpoint(MID_ARITH)
+    check(params["embed"].dtype == torch.bfloat16, "eval: bf16 checkpoint")
+    log(f"eval: runs/mid_arith loaded without ml_dtypes in "
+        f"{time.perf_counter() - t0:.1f} s: {cfg.num_layers} layers, hidden "
+        f"{cfg.hidden_size}, {cfg.num_heads} q / {cfg.num_kv_heads} kv "
+        f"heads, head_dim {cfg.head_dim}, {len(rows)} test problems")
+    ref = json.loads((MID_ARITH / "accuracy_sweep.json").read_text())
+    n = 150
+    check(ref["n"] == n, "eval: the record's n")
+    runs = [("simulated", name) for name in acc_run.matrix(cfg.num_layers)]
+    runs += [("fused", "GEAR-int4"), ("fused", "GEARL-int4")]
+    acc, seen = {}, {"simulated": {}, "fused": {}}
+    configs = acc_run.matrix(cfg.num_layers)
+    for mode, name in runs:
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        res, _ = acc_run.evaluate(cfg, params, rows, configs[name],
+                                  mode=mode, limit=n)
+        secs = time.perf_counter() - t0
+        run_counts = kernels.launch_counts()
+        seen[f"{mode} {name}"] = run_counts
+        for k, c in run_counts.items():
+            seen[mode][k] = seen[mode].get(k, 0) + c
+        acc[mode, name] = res.accuracy
+        base = acc["simulated", "NONE"]
+        want = ref["results"][name]
+        log(f"eval {mode} {name}: accuracy {res.accuracy:.4f} "
+            f"({res.correct}/{res.n}) delta vs NONE "
+            f"{res.accuracy - base:+.4f}; TPU record (simulated, "
+            f"runs/mid_arith/accuracy_sweep.json) {want['accuracy']:.4f} "
+            f"({want['correct']}/{want['n']}) delta "
+            f"{want['delta_vs_none']:+.4f}; {secs:.1f} s")
+    counts["eval"] = seen
+    none = acc["simulated", "NONE"]
+    check(none >= 0.20, f"eval: NONE accuracy {none:.3f} >= 0.20")
+    for (mode, name), a in acc.items():
+        if "int4" in name:
+            check(abs(a - none) <= 0.06, f"eval: {mode} {name} within 0.06 "
+                  f"of NONE ({a:.3f} against {none:.3f})")
+    f, sim = seen["fused"], seen["simulated"]
+    check(f["decode_attention"] > 0 and f["quant_pack_channels"] > 0
+          and f["quant_pack_tokens"] > 0, "eval: fused runs launched B1, "
+          "B2 and B3")
+    check(sim["flash_decode"] > 0, "eval: simulated runs launched B4")
+    log(f"eval launches: simulated {sim}; fused {f}")
+
+    # the card against the CPU: NONE, raw mode, the first 16 problems
+    t0 = time.perf_counter()
+    agree, parts = card_vs_cpu_predictions(torch, cfg, params, rows[:16])
+    log(f"eval card vs CPU, NONE raw, 16 problems: {agree} of 16 "
+        f"predictions equal; where they part, at the first differing token "
+        f"(same prefix on both), each device's top two, their gap and the "
+        f"step's max |logit diff| / max |logit|: {parts} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    # a parting is allowed only as a bf16 near-tie: the two devices' tokens
+    # are the top two on both, and the step's logits agree as in lockstep
+    for part in parts:
+        pair = sorted((part["card"], part["cpu"]))
+        check(all(sorted(t) == pair for t in part["top2"].values())
+              and part["logit_err"] < LOCKSTEP_LIMIT,
+              f"eval: card and CPU part on problem {part['problem']} only "
+              f"at a near-tie of their two tokens, logits within "
+              f"{LOCKSTEP_LIMIT}")
+    del params
+    phase_s = time.perf_counter() - t_phase
+    log(f"eval phase (matrix at n={n}, card vs CPU): {phase_s:.1f} s")
+
+    # the CLI, turnkey: tiny_arith_hf, its gsm8k split, NONE, simulated
+    out_dir = OUT / "eval_cli"
+    before = set(out_dir.glob("results_*.json"))
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    evalrun.main(["--zero_shot", "--limit", "16", "--out_dir",
+                  str(out_dir)])
+    counts["eval_cli"] = {"simulated": kernels.launch_counts()}
+    new = sorted(set(out_dir.glob("results_*.json")) - before)
+    check(len(new) == 1, "eval CLI wrote its results JSON")
+    payload = json.loads(new[0].read_text())
+    check(payload["results"][0]["n"] == 16, "eval CLI: 16 problems")
+    log(f"eval CLI (python -m gear_tpu_torch.eval.run --zero_shot --limit "
+        f"16): accuracy {payload['results'][0]['accuracy']:.4f}, "
+        f"{time.perf_counter() - t0:.1f} s, launches "
+        f"{counts['eval_cli']['simulated']}")
+
+
+def phase_train(torch):
+    """``eval.synth.train`` on the card: the tiny scale, 30 steps from a
+    seeded init; the loss falls; the checkpoint round trip keeps every bit;
+    greedy generation runs from the trained params."""
+    from gear_tpu_torch.config import CompressionConfig
+    from gear_tpu_torch.engine import EngineConfig, InferenceEngine
+    from gear_tpu_torch.eval import synth
+    from gear_tpu_torch.models import llama
+    from gear_tpu_torch.tools import acc_run
+
+    tok = synth.CharTokenizer()
+    cfg = llama.ModelConfig(**acc_run.SCALES["tiny"])
+    params = llama.init_params(cfg, seed=0)
+    spec = synth.TrainSpec(steps=30)
+    losses = []
+    t0 = time.perf_counter()
+    trained = synth.train(cfg, params, synth.make_dataset(4000, seed=0), tok,
+                          spec, log_every=10, log=log, losses=losses)
+    torch.cuda.synchronize()
+    log(f"train: {spec.steps} steps of batch {spec.batch} x {spec.seq_len} "
+        f"in {time.perf_counter() - t0:.1f} s, loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f}")
+    check(losses[-1] < losses[0], "train: the last loss below the first")
+    path = OUT / "train" / "params.pkl"
+    synth.save_params(trained, path)
+    back = synth.load_params(path)
+    same = all(
+        torch.equal(a.view(torch.int16), b.view(torch.int16))
+        for (_, a), (_, b) in zip(synth._flatten(trained),
+                                  synth._flatten(back)))
+    check(same, "train: save_params -> load_params keeps every bit")
+    comp = CompressionConfig(num_layers=cfg.num_layers,
+                             compress_method="NONE")
+    eng = InferenceEngine(cfg, back, comp, EngineConfig(max_len=256,
+                                                        mode="raw"),
+                          batch_size=2)
+    rows = synth.make_dataset(2, seed=5)
+    prompts = [tok.encode(synth.QUESTION_TEMPLATE.format(q=r["question"]))
+               for r in rows]
+    out = eng.generate(prompts, 24)
+    check(all(len(o) == 24 and all(0 <= x < cfg.vocab_size for x in o)
+              for o in out), "train: greedy generation from the trained "
+          "params")
+    log(f"train: greedy from the trained params: {tok.decode(out[0])!r}")
+
+
+def phase_evict(torch, cfg):
+    """Engine modes h2o and sink at the full width and depth of Llama-2-7B,
+    seeded random bf16 weights, batch 4, prompts of ~1,000 tokens in a
+    bucket of 1024, 80 new tokens: H2O with 256 heavy-hitter and 768 recent
+    slots (eviction from the first decode step), sink with 4 sinks and a
+    window of 1020 (the ring wraps from the first decode step). The first
+    token must be raw mode's (the prompt fits, the prefill is exact), the
+    logits finite; step times beside raw mode's."""
+    import numpy as np
+
+    from gear_tpu_torch import kernels
+    from gear_tpu_torch.config import CompressionConfig
+    from gear_tpu_torch.engine import EngineConfig, InferenceEngine
+    from gear_tpu_torch.models import llama
+    from torch.profiler import ProfilerActivity, profile
+
+    lens, batch, n_new, max_len = [1000, 1024, 977, 1011], 4, 80, 1152
+    params = llama.init_params(cfg, seed=0)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(1, cfg.vocab_size, n).tolist() for n in lens]
+    comp = CompressionConfig(num_layers=cfg.num_layers,
+                             compress_method="NONE", group_size=64,
+                             important_size=256, recent_size=768,
+                             sink_size=4, window_size=1020)
+
+    def engine(mode):
+        return InferenceEngine(cfg, params, comp,
+                               EngineConfig(max_len=max_len, mode=mode),
+                               batch_size=batch)
+
+    first_raw = [o[0] for o in engine("raw").generate(prompts, 1)]
+    for mode in ("h2o", "sink"):
+        eng = engine(mode)
+        eng.generate(prompts, 2)  # warm-up
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = eng.generate(prompts, n_new)  # the path
+        total_ms = (time.perf_counter() - t0) * 1e3
+        launches = kernels.launch_counts()
+        check(len(out) == batch and all(len(o) == n_new for o in out)
+              and all(0 <= x < cfg.vocab_size for o in out for x in o),
+              f"{mode}: output shape and range")
+        check([o[0] for o in out] == first_raw, f"{mode}: first token equal "
+              "to raw mode's")
+        s = eng.bucket_len(max(lens))
+        tokens, mask = eng.left_pad(prompts, 0, s)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = eng.prefill(tokens, mask)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        prompt_len = mask.sum(dim=1).to(torch.int32)
+        pad = (s - prompt_len).to(torch.int32)
+        cur = logits[:, -1].argmax(-1)
+        del logits
+        times = []
+        for i in range(n_new - 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cur, lg, caches = eng.decode_step(caches, cur, prompt_len + i,
+                                              pad)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        check(bool(torch.isfinite(lg).all()), f"{mode}: decode logits finite")
+        if mode == "h2o":
+            check(caches.length == eng.hspec.budget
+                  and int(caches.pos.min()) >= 0,
+                  "h2o: the cache evicted and holds no pad slot")
+            state = (f"budget {eng.hspec.budget} full, kept positions "
+                     f"{int(caches.pos.min())}..{int(caches.pos.max())}")
+        else:
+            check(caches.length == s + n_new - 1
+                  and caches.length > eng.sspec.capacity,
+                  "sink: the ring wrapped")
+            state = (f"{caches.length} tokens through a capacity of "
+                     f"{eng.sspec.capacity}")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(n_new - 1, n_new + 4):
+                cur, _, caches = eng.decode_step(caches, cur,
+                                                 prompt_len + i, pad)
+            torch.cuda.synchronize()
+        rows = prof.key_averages()
+        device_ms = sum(e.device_time_total for e in rows) / 5 / 1e3
+        n_kernels = sum(e.count for e in rows) / 5
+        median = sorted(times)[len(times) // 2]
+        log(f"{mode} Llama-2-7B (32 layers, depth not cut): batch {batch}, "
+            f"prompts {lens}, {n_new} new tokens; {state}; first tokens "
+            f"equal to raw mode's; generate_ms={total_ms:.1f} (one "
+            f"host-clock sample) prefill_ms={prefill_ms:.1f} "
+            f"median_step_ms={median:.2f} min_step_ms={min(times):.2f} "
+            f"device_ms_per_step={device_ms:.2f} "
+            f"device_launches_per_step={n_kernels:.0f} "
+            f"tokens_per_s={batch / median * 1e3:.1f}; kernel launches "
+            f"{launches} (plain torch attention, as in the reference)")
+        del eng, caches
+    raw = engine("raw")
+    median, line = step_breakdown(torch, raw, prompts, lens)
+    log(f"h2o / sink beside raw (same config): {line} "
+        f"tokens_per_s={batch / median * 1e3:.1f}")
+    del raw, params
+    torch.cuda.empty_cache()
+
+
+def phase_small_evict(torch):
+    """A small bf16 model in modes h2o and sink, decoding in lockstep on the
+    card and on the CPU from the same prompts, through eviction and the
+    ring's wrap: the logits must agree."""
+    from gear_tpu_torch.config import CompressionConfig
+    from gear_tpu_torch.engine import EngineConfig, InferenceEngine
+    from gear_tpu_torch.models import llama
+
+    cfg = llama.ModelConfig.tiny(hidden_size=256, num_heads=4, num_kv_heads=2,
+                                 head_dim=64, intermediate_size=512)
+    params = llama.init_params(cfg, seed=3)
+    cpu_params = {k: ({kk: vv.cpu() for kk, vv in v.items()}
+                      if isinstance(v, dict) else v.cpu())
+                  for k, v in params.items()}
+    comp = CompressionConfig(num_layers=cfg.num_layers, group_size=16,
+                             important_size=6, recent_size=26, sink_size=3,
+                             window_size=29)
+    prompts = [[5, 9, 2, 7, 11, 3, 8, 4, 1, 6, 12, 13, 14, 15, 16, 17, 18,
+                19, 21, 22], [4, 1, 6, 20, 30]]
+    for mode in ("h2o", "sink"):
+        engs = [InferenceEngine(cfg, p, comp, EngineConfig(max_len=128,
+                                                           mode=mode),
+                                batch_size=2, device=dev)
+                for p, dev in ((params, None), (cpu_params, "cpu"))]
+        tokens, mask = engs[0].left_pad(prompts, 0, 32)
+        states = [eng.prefill(t, m) for eng, t, m in (
+            (engs[0], tokens, mask), (engs[1], tokens.cpu(), mask.cpu()))]
+        caches = [c for _, c in states]
+        cur = states[0][0][:, -1].argmax(-1)
+        prompt_len = mask.sum(dim=1).to(torch.int32)
+        pad = (32 - prompt_len).to(torch.int32)
+        worst = 0.0
+        for step in range(40):
+            out = [eng.decode_step(c, t, (prompt_len + step).to(t.device),
+                                   pad.to(t.device))
+                   for eng, c, t in zip(engs, caches, (cur, cur.cpu()))]
+            lg, lc = out[0][1].cpu(), out[1][1]
+            worst = max(worst, float((lg - lc).abs().max())
+                        / float(lc.abs().max()))
+            caches = [o[2] for o in out]
+            cur = out[0][1].argmax(-1)
+        if mode == "h2o":
+            check(caches[0].length == 32 and torch.equal(
+                caches[0].pos.cpu(), caches[1].pos),
+                "small h2o: evicting, the same kept positions on both")
+        else:
+            check(caches[0].length == 72 > engs[0].sspec.capacity,
+                  "small sink: the ring wrapped")
+        log(f"small model, {mode}: card vs CPU over 40 decode steps through "
+            f"{'eviction' if mode == 'h2o' else 'the ring wrap'}, max |logit "
+            f"diff| / max |logit| = {worst:.3e} (limit 5e-2: bf16 "
+            f"projections round differently on the two)")
+        check(worst < 5e-2, f"small {mode}: card and CPU logits agree")
+
+
 def main() -> int:
     import torch
 
@@ -1442,6 +1906,11 @@ def main() -> int:
     record: dict = {}
     counts: dict = {}
     llama_cfg = llama.ModelConfig.llama2_7b()
+    # the earlier slices' 7B paths at full width and a cut depth, so that the
+    # whole script stays near five minutes; h2o / sink keep all 32 layers
+    llama_cut = dataclasses.replace(llama_cfg, num_layers=EARLIER_DEPTH)
+    mistral_cut = dataclasses.replace(mistral.mistral_7b(),
+                                      num_layers=EARLIER_DEPTH)
     phases = {
         "pack": lambda: phase_pack(torch, timer, record),
         "decode": lambda: phase_decode(torch, timer, record),
@@ -1449,28 +1918,36 @@ def main() -> int:
         # the Mistral-7B path (GQA, window 4096): the full GEAR
         # recipe, prompts past the window so that it binds from step one
         "e2e mistral": lambda: counts.update(mistral=phase_e2e(
-            torch, "Mistral-7B", mistral.mistral_7b(), "GEAR", 2,
-            [4300, 4210], 80, 4480, "depth not cut")),
+            torch, "Mistral-7B", mistral_cut, "GEAR", 2, [4300, 4210], 80,
+            4480, "of 32")),
         # the Llama-2-7B path: GEARL, raw mode on the flash kernel
         "e2e llama": lambda: counts.update(llama=phase_e2e(
-            torch, "Llama-2-7B", llama_cfg, "GEARL", 4,
-            [1000, 1024, 977, 1011], 80, 1152, "depth not cut")),
+            torch, "Llama-2-7B", llama_cut, "GEARL", 4,
+            [1000, 1024, 977, 1011], 80, 1152, "of 32")),
         # the simulated mode's path (the accuracy path): raw cache, prompt
         # and cache recompressed by fake quantization, the flash kernel
         "e2e simulated": lambda: counts.update(
-            simulated={"simulated": phase_simulated(torch, llama_cfg)}),
+            simulated={"simulated": phase_simulated(torch, llama_cut)}),
         "small gearl": lambda: phase_small(torch, "GEARL"),
         "small gear": lambda: phase_small(torch, "GEAR"),
         "paged": lambda: phase_paged(torch, timer, record),
         # the paged slice's path: continuous batching over the page pool
         "e2e serving": lambda: counts.update(
-            serving={"paged": phase_serving(torch, llama_cfg, timer,
+            serving={"paged": phase_serving(torch, llama_cut, timer,
                                             record)}),
         "small serving": lambda: phase_small_serving(torch),
+        # the evaluation slice: its kernels' shapes, the accuracy protocol
+        # on the mid-scale checkpoint, training, and engine modes h2o and
+        # sink
+        "eval kernels": lambda: phase_eval_kernels(torch, timer, record),
+        "eval": lambda: phase_eval(torch, counts),
+        "train": lambda: phase_train(torch),
+        "e2e h2o sink": lambda: phase_evict(torch, llama_cfg),
+        "small h2o sink": lambda: phase_small_evict(torch),
     }
-    for name in phases:
+    for name, run in phases.items():
         t0 = time.perf_counter()
-        phases[name]()
+        run()
         log(f"phase {name} done in {time.perf_counter() - t0:.1f} s")
 
     # (record row, wrapper, source, TPU kernel it replaces, path and mode
@@ -1511,6 +1988,23 @@ def main() -> int:
         ("quant_pack_tokens_serving", "quant_pack_tokens",
          "gear_tpu_torch/csrc/pack.cu", "gear_tpu/kernels/pack.py:67",
          "serving", "paged"),
+        ("decode_attention_eval", "decode_attention",
+         "gear_tpu_torch/csrc/decode.cu", "gear_tpu/kernels/decode.py:132",
+         "eval", "fused GEARL-int4"),
+        ("decode_attention_eval_gear", "decode_attention",
+         "gear_tpu_torch/csrc/decode.cu", "gear_tpu/kernels/decode.py:132",
+         "eval", "fused GEAR-int4"),
+        ("quant_pack_channels_eval", "quant_pack_channels",
+         "gear_tpu_torch/csrc/pack.cu", "gear_tpu/kernels/pack.py:90",
+         "eval", "fused GEARL-int4"),
+        ("quant_pack_tokens_eval", "quant_pack_tokens",
+         "gear_tpu_torch/csrc/pack.cu", "gear_tpu/kernels/pack.py:67",
+         "eval", "fused GEARL-int4"),
+        ("flash_decode_eval", "flash_decode", "gear_tpu_torch/csrc/flash.cu",
+         "gear_tpu/kernels/flash.py:32", "eval", "simulated"),
+        ("flash_decode_eval_d32", "flash_decode",
+         "gear_tpu_torch/csrc/flash.cu", "gear_tpu/kernels/flash.py:32",
+         "eval_cli", "simulated"),
     ]
     kern = []
     for row, wrapper, src, rep, path, mode in info:

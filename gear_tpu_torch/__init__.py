@@ -6,8 +6,10 @@ cache, for Llama and Mistral models, static batches (``InferenceEngine``) and
 continuous batching over dense per-slot caches or a shared page pool
 (``ServingEngine``, ``PagedServingEngine``), with hand-written CUDA kernels
 for the prefill pack, the fused decode attention over the compressed cache
-(dense and paged) and the flash decode over the raw bf16 cache. It imports
-torch and numpy, never JAX and nothing of gear_tpu.
+(dense and paged) and the flash decode over the raw bf16 cache; the H2O and
+StreamingLLM eviction baselines (engine modes ``h2o`` and ``sink``); and the
+accuracy evaluation (``eval``: harness, synthetic data and training, the
+CLI). It imports torch and numpy, never JAX and nothing of gear_tpu.
 """
 from .config import CompressionConfig, LayerCompressionConfig  # noqa: F401
 

@@ -1,5 +1,6 @@
 """Inference engine: bucketed prefill + decode loop, PyTorch port of
-``gear_tpu/engine.py`` (modes ``fused`` and ``raw``).
+``gear_tpu/engine.py`` (every mode; ``shard`` and ``shard_seq`` are not
+ported).
 
 PyTorch runs eagerly, so there is nothing to compile: each decode step runs
 the layer loop directly and updates the caches in place (the JAX engine
@@ -18,8 +19,13 @@ Modes:
     ``streaming_gap`` tokens (``stream_grouping``) or the whole cache
     (the default) compressed again; decode attends the raw cache through
     the flash-decode kernel on the card.
-The JAX engine's other modes (``h2o``, ``sink``) raise
-``NotImplementedError``.
+  * ``h2o``       — a fixed budget of ``important_size + recent_size``
+    positions with heavy-hitter eviction (``h2o.py``).
+  * ``sink``      — ``sink_size`` attention sinks and a ring of
+    ``window_size`` positions, keys rotated at attend time (``sink.py``).
+In ``h2o`` and ``sink`` mode the prompt's bucket must fit the budget or the
+capacity; attention there is plain torch (the reference runs no Pallas
+kernel in either).
 
 Init sites of the simulated mode (``init(site, shape)``, see
 ``models.llama``): ``("sim_prefill", layer, which)`` for the prompt's
@@ -32,18 +38,19 @@ from dataclasses import dataclass
 
 import torch
 
+from . import h2o, sink
 from .config import CompressionConfig
 from .core import simulated
 from .device import resolve_device
 from .models import llama
 
-MODES = ("fused", "raw", "simulated")
+MODES = ("fused", "raw", "simulated", "h2o", "sink")
 
 
 @dataclass(frozen=True)
 class EngineConfig:
     max_len: int = 2048
-    mode: str = "fused"            # fused | raw | simulated
+    mode: str = "fused"            # fused | raw | simulated | h2o | sink
     eos_token_id: int | None = None
     pad_token_id: int = 0
     temperature: float = 0.0       # 0 = greedy
@@ -64,9 +71,8 @@ class InferenceEngine:
                  batch_size: int = 1, *, device=None):
         self.device = resolve_device(device)
         if engine_cfg.mode not in MODES:
-            raise NotImplementedError(
-                f"engine mode {engine_cfg.mode!r} is not ported yet "
-                f"(ported: {MODES})")
+            raise ValueError(f"unknown engine mode {engine_cfg.mode!r} "
+                             f"(modes: {MODES})")
         if params["embed"].device != self.device:
             raise ValueError(f"params on {params['embed'].device}, engine on "
                              f"{self.device}")
@@ -88,6 +94,18 @@ class InferenceEngine:
                 "the compressed cache masks the window over the packed "
                 "prefix only; use group_size <= sliding_window")
         self.spec = model_cfg.cache_spec(batch_size, engine_cfg.max_len, lcomp)
+        if engine_cfg.mode == "h2o":
+            self.hspec = h2o.H2OSpec(
+                batch=batch_size, num_kv_heads=model_cfg.num_kv_heads,
+                head_dim=model_cfg.head_dim,
+                budget=lcomp.important_size + lcomp.recent_size,
+                important=lcomp.important_size, dtype=model_cfg.dtype)
+        elif engine_cfg.mode == "sink":
+            self.sspec = sink.SinkSpec(
+                batch=batch_size, num_kv_heads=model_cfg.num_kv_heads,
+                head_dim=model_cfg.head_dim, num_sink=lcomp.sink_size,
+                window=lcomp.window_size, rope_theta=model_cfg.rope_theta,
+                dtype=model_cfg.dtype)
 
     # -- bucketing ------------------------------------------------------
 
@@ -134,6 +152,22 @@ class InferenceEngine:
                 init=None, generator: torch.Generator | None = None):
         """Prompt pass -> (logits [B,S,V], stacked caches)."""
         positions = torch.clamp(torch.cumsum(mask, dim=1) - 1, min=0)
+        s = tokens.shape[1]
+        mode = self.ecfg.mode
+        if mode == "h2o":
+            if s > self.hspec.budget:
+                raise ValueError(
+                    f"h2o mode: prompt bucket {s} exceeds the H2O "
+                    f"budget {self.hspec.budget}")
+            return llama.forward_prefill_h2o(self.params, self.cfg, tokens,
+                                             positions, mask, self.hspec)
+        if mode == "sink":
+            if s > self.sspec.capacity:
+                raise ValueError(
+                    f"sink mode: prompt bucket {s} exceeds the sink "
+                    f"capacity {self.sspec.capacity}")
+            return llama.forward_prefill_sink(self.params, self.cfg, tokens,
+                                              positions, mask, self.sspec)
         hook = None
         if self.simulating:
             def hook(layer, k, v):
@@ -165,6 +199,16 @@ class InferenceEngine:
     def decode_step(self, caches, token, position, pad_start, *, step: int = 0,
                     init=None, generator: torch.Generator | None = None):
         """One decode step -> (next token [B] int64, logits [B,V], caches)."""
+        if self.ecfg.mode == "h2o":
+            logits, caches = llama.forward_decode_h2o(
+                self.params, self.cfg, token, position, caches,
+                hspec=self.hspec)
+            return self._pick(logits, generator), logits, caches
+        if self.ecfg.mode == "sink":
+            logits, caches = llama.forward_decode_sink(
+                self.params, self.cfg, token, position, caches,
+                sspec=self.sspec)
+            return self._pick(logits, generator), logits, caches
         logits, caches = llama.forward_decode(
             self.params, self.cfg, token, position, caches, spec=self.spec,
             compress=self.ecfg.mode == "fused", pad_start=pad_start,

@@ -1,5 +1,6 @@
 """Llama-family model with compressed-KV decode, PyTorch port of
-``gear_tpu/models/llama.py`` (the fused, raw and simulated paths).
+``gear_tpu/models/llama.py`` (the fused, raw, simulated, H2O and sink
+paths, and the prefill that training differentiates).
 
   * Parameters are a plain dict: ``embed``, ``final_norm``, ``lm_head`` and
     ``layers``, a dict of per-layer tensors stacked on a leading axis, in
@@ -277,10 +278,13 @@ def _layer_slice(layers: dict, idx: int) -> dict:
 
 
 def _qkv(cfg: ModelConfig, lp: dict, h, cos, sin):
+    """q, k, v of one layer; q and k rotated unless ``cos`` is None."""
     x = rmsnorm(h, lp["attn_norm"], cfg.rms_eps)
     q = _split_heads(x @ lp["wq"], cfg.num_heads, cfg.head_dim)
     k = _split_heads(x @ lp["wk"], cfg.num_kv_heads, cfg.head_dim)
     v = _split_heads(x @ lp["wv"], cfg.num_kv_heads, cfg.head_dim)
+    if cos is None:
+        return q, k, v
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
@@ -289,6 +293,19 @@ def _finish_layer(cfg: ModelConfig, lp: dict, h, attn):
     h = h + attn.transpose(1, 2).reshape(b, s, -1) @ lp["wo"]
     x2 = rmsnorm(h, lp["mlp_norm"], cfg.rms_eps)
     return h + mlp_block(x2, lp["wg"], lp["wu"], lp["wd"])
+
+
+def _layers(params: dict, cfg: ModelConfig, h, cos, sin, mix):
+    """The layer loop every forward pass shares, then the final norm and the
+    logits [..., V] f32. ``mix(i, q, k, v) -> attn`` is the pass's own cache
+    step and attention for layer ``i`` (q and k as :func:`_qkv` gives
+    them)."""
+    for i in range(cfg.num_layers):
+        lp = _layer_slice(params["layers"], i)
+        q, k, v = _qkv(cfg, lp, h, cos, sin)
+        h = _finish_layer(cfg, lp, h, mix(i, q, k, v))
+    h = rmsnorm(h, params["final_norm"], cfg.rms_eps)
+    return logits_from_hidden(params, cfg, h)
 
 
 # ---------------------------------------------------------------------------
@@ -302,7 +319,9 @@ def forward_prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                     init: InitFn | None = None,
                     generator: torch.Generator | None = None,
                     use_lowrank: bool = True, kv_hook=None):
-    """Run the prompt, return (logits [B,S,V] f32, caches).
+    """Run the prompt, return (logits [B,S,V] f32, caches). No gradient is
+    taken (:func:`forward_prefill_grad` is the pass that training
+    differentiates).
 
     With ``spec`` and ``compress``, each layer's KV is compressed into a
     two-tier LayerCache (prefill block at prefill_rank + residual tail), and
@@ -314,28 +333,43 @@ def forward_prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     attention (the simulated mode's compression): the prompt's logits see
     the hooked K/V, and they are what gets cached.
     """
+    return _prefill(params, cfg, tokens, positions, attn_mask, spec,
+                    compress=compress, init=init, generator=generator,
+                    use_lowrank=use_lowrank, kv_hook=kv_hook)
+
+
+def forward_prefill_grad(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                         positions: torch.Tensor, attn_mask: torch.Tensor):
+    """The prompt pass with no cache, through which a gradient flows: the
+    reference's ``forward_prefill(..., None, compress=False)`` as
+    ``eval.synth.train`` differentiates it. Returns (logits [B,S,V] f32, the
+    stacked (k, v))."""
+    return _prefill(params, cfg, tokens, positions, attn_mask, None)
+
+
+def _prefill(params, cfg, tokens, positions, attn_mask, spec, *,
+             compress=True, init=None, generator=None, use_lowrank=True,
+             kv_hook=None):
     h = params["embed"][tokens].to(cfg.dtype)
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
     caches = []
-    for i in range(cfg.num_layers):
-        lp = _layer_slice(params["layers"], i)
-        q, k, v = _qkv(cfg, lp, h, cos, sin)
+
+    def mix(i, q, k, v):
         if kv_hook is not None:
             k, v = kv_hook(i, k, v)
-        attn = causal_attention(q, k, v, attn_mask, cfg.sliding_window)
-        h = _finish_layer(cfg, lp, h, attn)
         if spec is None:
             caches.append((k, v))
         elif compress:
             p0 = None if init is None else (
-                lambda which, shape, i=i: init(("prefill", i, which), shape))
+                lambda which, shape: init(("prefill", i, which), shape))
             caches.append(kvcache.prefill(spec, k, v, p0=p0,
                                           generator=generator,
                                           use_lowrank=use_lowrank))
         else:
             caches.append(raw_prefill(spec, k, v))
-    h = rmsnorm(h, params["final_norm"], cfg.rms_eps)
-    logits = logits_from_hidden(params, cfg, h)
+        return causal_attention(q, k, v, attn_mask, cfg.sliding_window)
+
+    logits = _layers(params, cfg, h, cos, sin, mix)
     if spec is None:
         return logits, (torch.stack([c[0] for c in caches]),
                         torch.stack([c[1] for c in caches]))
@@ -361,26 +395,25 @@ def forward_decode(params: dict, cfg: ModelConfig, token: torch.Tensor,
     h = params["embed"][token].to(cfg.dtype)[:, None]
     cos, sin = rope_cos_sin(position[:, None], cfg.head_dim, cfg.rope_theta)
     lc = None
-    for i in range(cfg.num_layers):
-        lp = _layer_slice(params["layers"], i)
-        q, k, v = _qkv(cfg, lp, h, cos, sin)
+
+    def mix(i, q, k, v):
+        nonlocal lc
         lc = caches.layer(i)
-        if compress:
-            p0 = None if init is None else (
-                lambda which, shape, i=i, c=lc.comp_len:
-                init(("decode", step, i, which, c), shape))
-            kvcache.append(spec, lc, k, v, p0=p0, generator=generator,
-                           use_lowrank=use_lowrank)
-            attn = fused.attend_fused(spec, lc, q, pad_start=pad_start,
-                                      window=cfg.sliding_window)
-        else:
+        if not compress:
             raw_append(spec, lc, k, v)
-            attn = flash.raw_attend_flash(spec, lc, q, pad_start=pad_start,
+            return flash.raw_attend_flash(spec, lc, q, pad_start=pad_start,
                                           window=cfg.sliding_window)
-        h = _finish_layer(cfg, lp, h, attn)
+        p0 = None if init is None else (
+            lambda which, shape, c=lc.comp_len:
+            init(("decode", step, i, which, c), shape))
+        kvcache.append(spec, lc, k, v, p0=p0, generator=generator,
+                       use_lowrank=use_lowrank)
+        return fused.attend_fused(spec, lc, q, pad_start=pad_start,
+                                  window=cfg.sliding_window)
+
+    logits = _layers(params, cfg, h, cos, sin, mix)
     caches.set_lengths(lc)
-    h = rmsnorm(h, params["final_norm"], cfg.rms_eps)
-    return logits_from_hidden(params, cfg, h)[:, 0], caches
+    return logits[:, 0], caches
 
 
 @torch.no_grad()
@@ -409,25 +442,151 @@ def forward_decode_paged(params: dict, cfg: ModelConfig, token: torch.Tensor,
     cos, sin = rope_cos_sin(position[:, None], cfg.head_dim, cfg.rope_theta)
     plan = paged.plan_append(pspec, seqs, live, live_dev=live_dev)
     comp_before = {row: comp for row, comp, _, _ in plan.flushes}
-    for i in range(cfg.num_layers):
-        lp = _layer_slice(params["layers"], i)
-        q, k, v = _qkv(cfg, lp, h, cos, sin)
+
+    def mix(i, q, k, v):
         lpool, lseqs = pools.layer(i), seqs.layer(i)
         p0 = None if init is None else (
-            lambda row, which, shape, i=i:
+            lambda row, which, shape:
             init(("serve_decode", row, i, which, comp_before[row]), shape))
         paged.apply_append(pspec, lpool, lseqs, k, v, plan, p0=p0,
                            generator=generator)
-        attn = fused.attend_paged(pspec, lpool, lseqs, q, pad_start=pad_start,
+        return fused.attend_paged(pspec, lpool, lseqs, q, pad_start=pad_start,
                                   window=cfg.sliding_window)
-        h = _finish_layer(cfg, lp, h, attn)
-    h = rmsnorm(h, params["final_norm"], cfg.rms_eps)
-    return logits_from_hidden(params, cfg, h)[:, 0], pools, seqs
+
+    logits = _layers(params, cfg, h, cos, sin, mix)
+    return logits[:, 0], pools, seqs
 
 
 def logits_from_hidden(params: dict, cfg: ModelConfig, h: torch.Tensor):
     w = params["embed"].T if cfg.tie_word_embeddings else params["lm_head"]
     return h.float() @ w.float()
+
+
+# ---------------------------------------------------------------------------
+# H2O (heavy-hitter eviction) forward passes — engine mode "h2o".
+# ---------------------------------------------------------------------------
+
+def _prefill_received_attention(q, k, attn_mask):
+    """Attention mass each position received during the prefill [B,Hkv,S]
+    f32: the H2O score at the start (softmax probabilities summed over the
+    queries and the query heads of the group, as ``h2o.attend`` accumulates
+    them at decode)."""
+    b, hq, s, d = q.shape
+    hkv = k.shape[1]
+    gq = hq // hkv
+    qg = q.reshape(b, hkv, gq, s, d).float()
+    scores = torch.einsum("bhgqd,bhkd->bhgqk", qg, k.float()) * (d ** -0.5)
+    ii = torch.arange(s, device=q.device)
+    mask = (ii[:, None] >= ii[None, :])[None, None, None]
+    if attn_mask is not None:
+        mask = mask & attn_mask[:, None, None, None, :].bool()
+    scores = scores.masked_fill(~mask, float("-inf"))
+    w = torch.nan_to_num(torch.softmax(scores, dim=-1), nan=0.0)
+    return w.sum(dim=(2, 3))
+
+
+@torch.no_grad()
+def forward_prefill_h2o(params: dict, cfg: ModelConfig, tokens, positions,
+                        attn_mask, hspec):
+    """Prompt pass building stacked H2O caches (prompt length <= budget;
+    eviction starts at decode). Left padding: pad slots carry position -1,
+    which ``h2o.attend`` masks and ``h2o._evict`` drops first."""
+    from .. import h2o
+
+    h = params["embed"][tokens].to(cfg.dtype)
+    cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    b, s = tokens.shape
+    pos = torch.where(attn_mask.bool(), positions,
+                      torch.full_like(positions, -1)).to(torch.int32)
+    caches = []
+
+    def mix(i, q, k, v):
+        lc = h2o.init(hspec, device=h.device)
+        lc.k[:, :, :s] = k
+        lc.v[:, :, :s] = v
+        lc.score[:, :, :s] = _prefill_received_attention(q, k, attn_mask)
+        lc.pos[:, :, :s] = pos[:, None]
+        lc.length = s
+        caches.append(lc)
+        return causal_attention(q, k, v, attn_mask, cfg.sliding_window)
+
+    logits = _layers(params, cfg, h, cos, sin, mix)
+    return logits, h2o.stack_layers(caches)
+
+
+@torch.no_grad()
+def forward_decode_h2o(params: dict, cfg: ModelConfig, token, position,
+                       caches, *, hspec):
+    """One decode step over H2O caches: evict if full, append, attend
+    (accumulating the scores); the caches change in place. -> (logits
+    [B, V] f32, caches)."""
+    from .. import h2o
+
+    h = params["embed"][token].to(cfg.dtype)[:, None]
+    cos, sin = rope_cos_sin(position[:, None], cfg.head_dim, cfg.rope_theta)
+    lc = None
+
+    def mix(i, q, k, v):
+        nonlocal lc
+        lc = h2o.append(hspec, caches.layer(i), k, v, position)
+        return h2o.attend(hspec, lc, q)
+
+    logits = _layers(params, cfg, h, cos, sin, mix)
+    caches.set_lengths(lc)
+    return logits[:, 0], caches
+
+
+# ---------------------------------------------------------------------------
+# StreamingLLM sink-cache forward passes — engine mode "sink".
+# ---------------------------------------------------------------------------
+
+@torch.no_grad()
+def forward_prefill_sink(params: dict, cfg: ModelConfig, tokens, positions,
+                         attn_mask, sspec):
+    """Prompt pass building stacked sink caches (prompt length <= capacity).
+    Keys are cached UNROTATED (``sink.attend`` rotates them at their
+    cache-relative positions). No left padding is taken out: as in the
+    reference, the sinks are the bucket's first slots."""
+    from .. import sink
+
+    h = params["embed"][tokens].to(cfg.dtype)
+    cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    s = tokens.shape[1]
+    caches = []
+
+    def mix(i, q, k_unrot, v):
+        lc = sink.init(sspec, device=h.device)
+        lc.k[:, :, :s] = k_unrot
+        lc.v[:, :, :s] = v
+        lc.length = s
+        caches.append(lc)
+        q, k = apply_rope(q, cos, sin), apply_rope(k_unrot, cos, sin)
+        return causal_attention(q, k, v, attn_mask, cfg.sliding_window)
+
+    logits = _layers(params, cfg, h, None, None, mix)
+    return logits, sink.stack_layers(caches)
+
+
+@torch.no_grad()
+def forward_decode_sink(params: dict, cfg: ModelConfig, token, position,
+                        caches, *, sspec):
+    """One decode step over sink caches; RoPE happens inside
+    ``sink.attend`` at cache-relative positions, so q and k stay unrotated
+    here and ``position`` is not used (it keeps the decoders' signature).
+    The caches change in place. -> (logits [B, V] f32, caches)."""
+    from .. import sink
+
+    h = params["embed"][token].to(cfg.dtype)[:, None]
+    lc = None
+
+    def mix(i, q, k, v):
+        nonlocal lc
+        lc = sink.append(sspec, caches.layer(i), k, v)
+        return sink.attend(sspec, lc, q)
+
+    logits = _layers(params, cfg, h, None, None, mix)
+    caches.set_lengths(lc)
+    return logits[:, 0], caches
 
 
 # ---------------------------------------------------------------------------

@@ -625,3 +625,106 @@ def test_paged_pipeline_edges(cuda, monkeypatch, kw, pb, pad, window, bps):
                                  window=window)
     assert torch.equal(got[-1], torch.zeros_like(got[-1]))  # the parked row
     torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-4)
+
+
+# The evaluation path's shapes: the mid-scale checkpoint (runs/mid_arith:
+# head_dim 64, 6 kv / 12 q heads, GQ 2) and the CLI's tiny_arith_hf (head_dim
+# 32, 4 kv / 8 q heads), quant groups of 32 tokens and V groups of 32
+# channels, prompts in buckets of 96 / 128 tokens.
+@pytest.mark.parametrize("d,hkv", [(64, 6), (32, 4)], ids=["d64", "d32"])
+@pytest.mark.parametrize("method", ["GEARL", "GEAR"])
+def test_decode_kernel_at_eval_shapes(cuda, method, d, hkv):
+    """B1 over a cache built by the port's prefill of 128 left-padded
+    tokens and 47 appends (a flush at 160), GQ 2, int4, group 32; GEAR
+    keeps ``int(0.02 * 32 * d)`` outliers a block (40 at d=64, 20 at 32)."""
+    ko = int(0.02 * 32 * d) if method == "GEAR" else 0
+    spec = TC.CacheSpec(batch=8, num_kv_heads=hkv, head_dim=d, max_len=512,
+                        bits=4, group=32, rank=2, prefill_rank=4,
+                        lowrank_loop=3, outliers_per_block=ko - ko % 2)
+    gen = torch.Generator(device=cuda).manual_seed(d + ko)
+    shape = (8, hkv, 128, d)
+    k = torch.randn(shape, generator=gen, device=cuda).bfloat16()
+    v = torch.randn(shape, generator=gen, device=cuda).bfloat16()
+    cache = TC.prefill(spec, k, v, generator=gen)
+    for _ in range(47):
+        kn = torch.randn((8, hkv, 1, d), generator=gen, device=cuda)
+        TC.append(spec, cache, kn.bfloat16(), (kn * 0.5).bfloat16(),
+                  generator=gen)
+    assert (cache.comp_len, cache.resid_len) == (160, 15)
+    q = torch.randn((8, 2 * hkv, 1, d), generator=gen, device=cuda)
+    pad = torch.tensor([22, 36, 30, 27, 33, 24, 29, 31], dtype=torch.int32,
+                       device=cuda)
+    before = TK.decode_attention.launches
+    got = TK.attend_fused(spec, cache, q, pad_start=pad)
+    assert TK.decode_attention.launches == before + 1
+    want = TC.attend(spec, cache, q, pad_start=pad)
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("d", [64, 32])
+def test_pack_kernels_at_eval_shapes(cuda, dtype, d):
+    """B3 (V groups of 32 channels) and B2 (groups of 32 tokens, K as the
+    model's [B, H, S, D] view of [B, S, H, D]) on 8 rows of a 128-token
+    bucket, bit-equal to their plain versions."""
+    hkv = 6 if d == 64 else 4
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    v = torch.randn((8 * hkv, 128, d), generator=gen, device=cuda).to(dtype)
+    v[0, 0, :32] = 0.75  # a constant group
+    k = torch.randn((8, 128, hkv, d), generator=gen, device=cuda).to(dtype)
+    k[0, :32, 0, 0] = -2.0
+    for kern, plain, kw, x in (
+            (TP.quant_pack_tokens, TP.quant_pack_tokens_plain,
+             dict(v_group=32), v),
+            (TP.quant_pack_channels, TP.quant_pack_channels_plain,
+             dict(group=32), k.transpose(1, 2))):
+        before = kern.launches
+        got = kern(x, bits=4, **kw)
+        assert kern.launches == before + 1
+        for a, b in zip(got, plain(x, bits=4, **kw)):
+            assert a.shape == b.shape and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("d,hkv,t,length", [(64, 6, 512, 175),
+                                            (32, 4, 2048, 383)],
+                         ids=["d64", "d32"])
+def test_flash_kernel_at_eval_shapes(cuda, d, hkv, t, length):
+    """B4 at GQ 2 with head_dim 64 (simulated mode on the mid-scale
+    checkpoint) and 32 (the CLI on tiny_arith_hf), left-padded rows."""
+    gen = torch.Generator(device=cuda).manual_seed(d)
+    spec = TC.CacheSpec(batch=8, num_kv_heads=hkv, head_dim=d, max_len=t)
+    k = torch.randn((8, hkv, t, d), generator=gen, device=cuda).bfloat16()
+    v = torch.randn((8, hkv, t, d), generator=gen, device=cuda).bfloat16()
+    c = llama.RawLayerCache(k=k, v=v, length=length)
+    q = torch.randn((8, 2 * hkv, 1, d), generator=gen, device=cuda)
+    pad = torch.tensor([22, 36, 30, 27, 33, 24, 29, 31], dtype=torch.int32,
+                       device=cuda)
+    before = TF.flash_decode.launches
+    got = TF.raw_attend_flash(spec, c, q, pad_start=pad)
+    assert TF.flash_decode.launches == before + 1
+    want = llama.raw_attend(spec, c, q, pad_start=pad)
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.parametrize("mode", ["h2o", "sink"])
+def test_evicting_engine_on_the_card_matches_the_cpu(cuda, mode):
+    """Modes h2o and sink on a small float32 model: the card's greedy tokens
+    equal the CPU's through eviction and the ring's wrap."""
+    cfg = llama.ModelConfig.tiny(head_dim=32, hidden_size=128, num_heads=4,
+                                 dtype=torch.float32)
+    params = llama.init_params(cfg, seed=1, device="cpu")
+    comp = CompressionConfig(num_layers=cfg.num_layers, group_size=16,
+                             important_size=6, recent_size=26, sink_size=3,
+                             window_size=29)
+    prompts = [[5, 9, 2, 7, 11, 3, 8, 4, 1, 6, 12, 13, 14, 15, 16, 17, 18,
+                19, 21, 22], [4, 1, 6, 20, 30]]
+    outs = {}
+    for dev in (cuda, torch.device("cpu")):
+        p = {k: ({kk: vv.to(dev) for kk, vv in v.items()}
+                 if isinstance(v, dict) else v.to(dev))
+             for k, v in params.items()}
+        eng = InferenceEngine(cfg, p, comp, EngineConfig(max_len=64, mode=mode),
+                              batch_size=2, device=dev)
+        outs[dev.type] = eng.generate(prompts, 30)
+    assert outs["cuda"] == outs["cpu"]

@@ -192,7 +192,10 @@ def test_port_imports_no_jax():
     code = ("import sys; import gear_tpu_torch, gear_tpu_torch.api, "
             "gear_tpu_torch.convert, gear_tpu_torch.kernels.decode, "
             "gear_tpu_torch.kernels.pack, gear_tpu_torch.models.loader, "
-            "gear_tpu_torch.paged, gear_tpu_torch.serving; "
+            "gear_tpu_torch.paged, gear_tpu_torch.serving, "
+            "gear_tpu_torch.h2o, gear_tpu_torch.sink, gear_tpu_torch.metrics, "
+            "gear_tpu_torch.eval.harness, gear_tpu_torch.eval.synth, "
+            "gear_tpu_torch.eval.run, gear_tpu_torch.tools.acc_run; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'gear_tpu')]; "
             "assert not bad, bad; print('ok')")
@@ -212,8 +215,9 @@ def test_entry_points_refuse_silent_cpu(tiny, monkeypatch):
         GearLM(cfg=tcfg, params=tparams, comp=comp).engine
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tllama.init_params(tcfg)
-    with pytest.raises(NotImplementedError):
-        TEngine(tcfg, tparams, comp, TEngineConfig(max_len=64, mode="h2o"),
+    # every mode is ported; a mode the reference lacks is refused
+    with pytest.raises(ValueError, match="unknown engine mode"):
+        TEngine(tcfg, tparams, comp, TEngineConfig(max_len=64, mode="h3o"),
                 batch_size=2, device="cpu")
 
 

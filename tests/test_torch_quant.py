@@ -123,8 +123,8 @@ def test_power_iterate_matches_reference(rng):
                                 dict(base_bits=8), dict(kcvt_prefill=True)])
 def test_unported_cache_options_raise(kw):
     """Outliers, int8 bases and KCVT scales build, as in the
-    reference. What is still unported raises: the engine modes other than
-    fused, raw and simulated."""
+    reference. Every engine mode is ported and builds; a mode the
+    reference lacks raises."""
     from gear_tpu_torch.engine import EngineConfig, InferenceEngine
     from gear_tpu_torch.models import llama
 
@@ -134,9 +134,9 @@ def test_unported_cache_options_raise(kw):
     assert (cache.comp_len, cache.resid_len) == (64, 6)
     cfg = llama.ModelConfig.tiny()
     params = llama.init_params(cfg, device="cpu")
-    for mode in ("h2o", "sink"):
-        with pytest.raises(NotImplementedError):
-            InferenceEngine(cfg, params, None, EngineConfig(mode=mode),
-                            device="cpu")
-    InferenceEngine(cfg, params, None, EngineConfig(mode="simulated"),
-                    device="cpu")
+    for mode in ("h2o", "sink", "simulated"):
+        InferenceEngine(cfg, params, None, EngineConfig(mode=mode),
+                        device="cpu")
+    with pytest.raises(ValueError, match="unknown engine mode"):
+        InferenceEngine(cfg, params, None, EngineConfig(mode="shard"),
+                        device="cpu")
