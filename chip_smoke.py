@@ -91,7 +91,19 @@ Phases, each printing lines of its own:
      wrap from the first decode step, first tokens equal to raw mode's,
      finite logits, step times beside raw mode's;
   15. a small model in modes h2o and sink on the card and on the CPU in
-     lockstep through eviction and the wrap: the logits must agree.
+     lockstep through eviction and the wrap: the logits must agree;
+  16. Mixtral-8x7B (sparse MoE, 8 experts of 14,336, top 2) at full width
+     and 16 of its 32 layers (``MIXTRAL_DEPTH``: 32 layers' 93 GB of bf16
+     weights do not fit the card), GEAR int2 with 2% outliers, batch 2,
+     prompts of 8,100 / 7,900 tokens, 80 decode steps through
+     ``models.mixtral`` in fused and raw mode: launch counts per run, B2 /
+     B3 at the prefill's shape bit-equal, B1 and B4 held against their plain
+     versions on the live caches, a ``runtime.kvstore`` snapshot after step
+     40 from which steps 41-80 must repeat the uninterrupted run bit for
+     bit, ``runtime.faults`` over caches and logits, no copy of the expert
+     weights in a profiled step;
+  17. a small Mixtral in fused mode (GEARL, then GEAR) in lockstep on the
+     card and on the CPU, as phase 7.
 
 Any failed check raises, so the script exits non-zero. The second-to-last
 line is the kernels' JSON record; the last is
@@ -115,6 +127,7 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
 FP32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 EARLIER_DEPTH = 8  # layers (of 32) of the earlier slices' 7B paths
 TOL_DECODE = dict(rtol=1e-3, atol=1e-4)  # both float32; sum order differs
+LOCKSTEP_LIMIT = 5e-2  # max |card - CPU| / max |CPU| logits, bf16 weights
 
 
 def log(*parts):
@@ -191,6 +204,11 @@ class Timer:
                 if e.device_time_total > 0)))
         raise RuntimeError(f"the profiler recorded no whole trace of {iters} "
                            f"calls: (zeroings, launches, records) {seen}")
+
+
+def short_name(name: str) -> str:
+    """A kernel's name from the profiler without its boilerplate."""
+    return re.sub(r"^void |\(anonymous namespace\)::|at::native::", "", name)
 
 
 def check(cond: bool, what: str) -> None:
@@ -320,8 +338,7 @@ def k_route_trace(torch):
                      if e.device_type == DeviceType.CUDA
                      and "FillFunctor" not in e.name),
                     key=lambda e: e.time_range.start)
-    names = [re.sub(r"^void |\(anonymous namespace\)::|at::native::", "",
-                    e.name)[:48] for e in events]
+    names = [short_name(e.name)[:48] for e in events]
     check(bool(names) and "channel_kernel" in names[0],
           f"K route: the channel kernel comes first, got {names}")
     log(f"K route (GEARL prefill, bf16 K [4x32x1024x128] strided): kernels "
@@ -341,6 +358,10 @@ MAIN_PATH_KERNELS = (
     ("B3 Mistral-7B and serving", "token_kernel<float,4,1>"),
     ("B2 Llama-2-7B", "channel_kernel<bf16,4>"),
     ("B2 Mistral-7B and serving", "channel_kernel<float,4>"),
+    ("B1 Mixtral-8x7B", "decode_split_kernel<2,4,0,0>"),
+    ("B4 Mixtral-8x7B", "flash_split_kernel<4>"),
+    ("B3 Mixtral-8x7B", "token_kernel<float,2,1>"),
+    ("B2 Mixtral-8x7B", "channel_kernel<float,2>"),
 )
 FLASH_KERNELS = ("flash_split_kernel", "attn_merge_kernel")
 
@@ -382,7 +403,6 @@ def decode_case(torch, timer, gen, name, kw, hkv, hq, pad, window, *,
     a flush, hold the kernel against the plain ``cache.attend`` on it, and
     time both. Returns the row for the kernels' record."""
     from gear_tpu_torch import cache as TC
-    from gear_tpu_torch.kernels import decode as TK
 
     spec = TC.CacheSpec(batch=b, num_kv_heads=hkv, head_dim=d, max_len=t,
                         **{"bits": 4, "group": g, "rank": 2,
@@ -400,7 +420,20 @@ def decode_case(torch, timer, gen, name, kw, hkv, hq, pad, window, *,
     check(cache.comp_len == total // g * g and cache.resid_len == total % g
           and cache.comp_len > cache.prefill_len, "decode cache lengths")
     q = torch.randn((b, hq, 1, d), generator=gen, device="cuda")
+    return hold_decode(torch, timer, name, spec, cache, q, pad, window)
+
+
+def hold_decode(torch, timer, name, spec, cache, q, pad, window):
+    """Hold the decode kernel against the plain ``cache.attend`` over one
+    layer's ``cache`` for the float32 queries ``q`` [B, Hq, 1, D], and time
+    both. Returns the row for the kernels' record."""
+    from gear_tpu_torch import cache as TC
+    from gear_tpu_torch.kernels import decode as TK
+
+    b, hq, _, d = q.shape
+    hkv, g, t = spec.num_kv_heads, spec.group, spec.max_len
     gq = hq // hkv
+    total = cache.comp_len + cache.resid_len
     pad_t = None if pad is None else torch.tensor(
         pad, dtype=torch.int32, device="cuda")
     kwargs = dict(pad_start=pad_t, window=window)
@@ -499,10 +532,7 @@ def flash_case(torch, timer, gen, hkv, hq, b, t, length, pad, window, *,
     """Hold the flash kernel against the plain ``raw_attend`` over a random
     bf16 raw cache, time both and ``scaled_dot_product_attention`` for the
     same function. Returns the row for the kernels' record."""
-    import torch.nn.functional as F
-
     from gear_tpu_torch import cache as TC
-    from gear_tpu_torch.kernels import flash as TF
     from gear_tpu_torch.models import llama
 
     spec = TC.CacheSpec(batch=b, num_kv_heads=hkv, head_dim=d, max_len=t)
@@ -510,6 +540,21 @@ def flash_case(torch, timer, gen, hkv, hq, b, t, length, pad, window, *,
     v = torch.randn((b, hkv, t, d), generator=gen, device="cuda").bfloat16()
     c = llama.RawLayerCache(k=k, v=v, length=length)
     q = torch.randn((b, hq, 1, d), generator=gen, device="cuda")
+    return hold_flash(torch, timer, spec, c, q, pad, window)
+
+
+def hold_flash(torch, timer, spec, c, q, pad, window):
+    """Hold the flash kernel against the plain ``raw_attend`` over one
+    layer's raw cache ``c`` for the float32 queries ``q`` [B, Hq, 1, D],
+    and time both and ``scaled_dot_product_attention`` for the same
+    function. Returns the row for the kernels' record."""
+    import torch.nn.functional as F
+
+    from gear_tpu_torch.kernels import flash as TF
+    from gear_tpu_torch.models import llama
+
+    b, hq, _, d = q.shape
+    hkv, t, length, k, v = spec.num_kv_heads, spec.max_len, c.length, c.k, c.v
     gq = hq // hkv
     pad_t = None if pad is None else torch.tensor(
         pad, dtype=torch.int32, device="cuda")
@@ -1404,32 +1449,39 @@ def phase_small_serving(torch):
     check(agree >= 0.9, "small serving: dense and paged tokens agree")
 
 
-def phase_small(torch, method):
-    """The fused model on a small input: kernels on the card against the
-    plain path on the CPU, in lockstep from one prefill, across a flush."""
+def phase_small(torch, method, family="llama"):
+    """The fused model on a small input (Llama, or Mixtral with 4 experts,
+    top 2): kernels on the card against the plain path on the CPU, in
+    lockstep from one prefill, across a flush."""
     from gear_tpu_torch import cache as TC
     from gear_tpu_torch.config import CompressionConfig
-    from gear_tpu_torch.engine import EngineConfig, InferenceEngine
-    from gear_tpu_torch.models import llama
+    from gear_tpu_torch.models import llama, mixtral
 
-    cfg = llama.ModelConfig.tiny(hidden_size=256, num_heads=4, num_kv_heads=2,
-                                 head_dim=64, intermediate_size=512)
-    params = llama.init_params(cfg, seed=3)
+    model = llama if family == "llama" else mixtral
+    config = (llama.ModelConfig if family == "llama"
+              else mixtral.MixtralConfig)
+    cfg = config.tiny(hidden_size=256, num_heads=4, num_kv_heads=2,
+                      head_dim=64, intermediate_size=512)
+    params = model.init_params(cfg, seed=3)
     comp = CompressionConfig(num_layers=cfg.num_layers,
                              compress_method=method, quantize_bit=4,
                              group_size=16, rank=2, prefill_rank=4, loop=3,
                              left=0.02)
-    eng = InferenceEngine(cfg, params, comp,
-                          EngineConfig(max_len=128, mode="fused"), batch_size=2)
-    check(bool(eng.spec.outliers_per_block) == (method == "GEAR"),
+    spec = cfg.cache_spec(2, 128, comp.layer(0))
+    check(bool(spec.outliers_per_block) == (method == "GEAR"),
           "small model: outliers with GEAR only")
 
     def init(site, shape):  # the same power-iteration inits on both sides
         gen = torch.Generator().manual_seed(hash(site) % (1 << 31))
         return torch.rand(shape, generator=gen)
 
-    tokens, mask = eng.left_pad([[5, 9, 2, 7, 11, 3, 8], [4, 1, 6]], 0, 16)
-    logits, caches = eng.prefill(tokens, mask, init=init)
+    prompts = [[5, 9, 2, 7, 11, 3, 8], [4, 1, 6]]
+    tokens = torch.tensor([[0] * (16 - len(p)) + p for p in prompts],
+                          device="cuda")
+    mask = (tokens != 0).to(torch.int32)
+    positions = torch.clamp(torch.cumsum(mask, dim=1) - 1, min=0)
+    logits, caches = model.forward_prefill(params, cfg, tokens, positions,
+                                           mask, spec, init=init)
     cpu_params = {k: ({kk: vv.cpu() for kk, vv in v.items()}
                       if isinstance(v, dict) else v.cpu())
                   for k, v in params.items()}
@@ -1441,20 +1493,21 @@ def phase_small(torch, method):
     cur = logits[:, -1].argmax(-1)
     worst = 0.0
     for step in range(20):  # flushes the residual tier at step 15
-        kw = dict(spec=eng.spec, step=step, init=init)
-        lg, caches = llama.forward_decode(
+        kw = dict(spec=spec, step=step, init=init)
+        lg, caches = model.forward_decode(
             params, cfg, cur, prompt_len + step, caches, pad_start=pad, **kw)
-        lc, cpu_caches = llama.forward_decode(
+        lc, cpu_caches = model.forward_decode(
             cpu_params, cfg, cur.cpu(), (prompt_len + step).cpu(), cpu_caches,
             pad_start=pad.cpu(), **kw)
         scale = float(lc.abs().max())
         worst = max(worst, float((lg.cpu() - lc).abs().max()) / scale)
         cur = lg.argmax(-1)
-    log(f"small model, {method} fused: card (kernels) vs CPU (plain path) "
-        f"over 20 decode steps, max |logit diff| / max |logit| = {worst:.3e} "
-        f"(limit 5e-2: bf16 projections round differently on the two)")
+    log(f"small model ({family}), {method} fused: card (kernels) vs CPU "
+        f"(plain path) over 20 decode steps, max |logit diff| / max |logit| "
+        f"= {worst:.3e} (limit {LOCKSTEP_LIMIT}: bf16 projections round "
+        f"differently on the two)")
     check(caches.comp_len == 32, "small model flushed once")
-    check(worst < 5e-2, "small model: card and CPU logits agree")
+    check(worst < LOCKSTEP_LIMIT, "small model: card and CPU logits agree")
 
 
 MID_ARITH = ROOT / "runs" / "mid_arith"
@@ -1489,7 +1542,6 @@ def phase_eval_kernels(torch, timer, record):
                                                  28], None, d=32)
 
 
-LOCKSTEP_LIMIT = 5e-2  # max |card - CPU| / max |CPU| logits, bf16 weights
 
 
 def card_vs_cpu_predictions(torch, cfg, params, rows):
@@ -1873,6 +1925,271 @@ def phase_small_evict(torch):
         check(worst < 5e-2, f"small {mode}: card and CPU logits agree")
 
 
+MIXTRAL_DEPTH = 16  # of 32 layers: 46.5 GB of bf16 weights; 32 (93 GB)
+# do not fit the 80 GB card beside the prefill's intermediates
+
+
+def profile_steps(torch, step, n=5, top=6):
+    """``step()`` ``n`` times under the profiler: device ms and launches a
+    call, the longest single launch of a copy kernel in ms, and the ``top``
+    kernels by device time (ms a call each, names shortened)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages() if e.device_time_total > 0]
+    device_ms = sum(e.device_time_total for e in rows) / n / 1e3
+    launches = sum(e.count for e in rows) / n
+    copy_ms = max([e.device_time_total / e.count / 1e3 for e in rows
+                   if "copy" in e.key.lower()] or [0.0])
+    rows.sort(key=lambda e: -e.device_time_total)
+    heavy = "; ".join(
+        f"{short_name(e.key)[:44]} {e.device_time_total / n / 1e3:.2f}"
+        for e in rows[:top])
+    return device_ms, launches, copy_ms, heavy
+
+
+def phase_mixtral(torch, timer, record):
+    """Mixtral-8x7B (sparse MoE: 8 experts of 14,336, top 2) at full width
+    and ``MIXTRAL_DEPTH`` of its 32 layers, seeded random bf16 weights made
+    on the card, through ``models.mixtral.forward_prefill`` /
+    ``forward_decode``: GEAR int2 (2% outliers, group 64, rank 2, prefill
+    rank 4, loop 3), batch 2, prompts of 8,100 and 7,900 tokens left-padded
+    to 8,100, max_len 8,320, 80 greedy decode steps (8,100 = 126 x 64 + 36:
+    the residual tier flushes at step 28), in fused mode and in raw mode (the
+    bf16 baseline). Launch counts set to 0 just before each run and read
+    just after. After step 40 the fused run's 16 stacked layers are saved
+    with ``runtime.kvstore`` and, after the run, loaded into a fresh cache:
+    steps 41-80 from it must give the same tokens and logits bit for bit.
+    On the live caches B1 and B4 are held against their plain versions and
+    timed there; B2 and B3 at the prefill's shape, bit-equal. Returns the
+    launch counts of the two runs."""
+    import numpy as np
+
+    from gear_tpu_torch import cache as TC
+    from gear_tpu_torch import kernels
+    from gear_tpu_torch.config import CompressionConfig
+    from gear_tpu_torch.models import llama, mixtral
+    from gear_tpu_torch.runtime import faults, kvstore
+
+    card = nvidia_smi()  # beside every measured line
+    full = mixtral.MixtralConfig.mixtral_8x7b()
+    cfg = dataclasses.replace(full, num_layers=MIXTRAL_DEPTH)
+    n_l, batch, lens, s, max_len, n_steps, snap_at = (
+        cfg.num_layers, 2, [8100, 7900], 8100, 8320, 80, 40)
+    comp = CompressionConfig(num_layers=n_l, compress_method="GEAR",
+                             quantize_bit=2, group_size=64, rank=2,
+                             prefill_rank=4, loop=3, left=0.02)
+    spec = cfg.cache_spec(batch, max_len, comp.layer(0))
+
+    # B2 and B3 at the prefill's shape: 2 x 8 rows of the 8,064 tokens the
+    # prefill compresses, int2, outliers replaced by the block mean (the
+    # float32 block the GEAR route hands both)
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    x = torch.randn((batch * cfg.num_kv_heads, 8064, cfg.head_dim),
+                    generator=gen, device="cuda")
+    x = cleaned_blocks(torch, x.bfloat16().float(), cfg.num_kv_heads)
+    for res in pack_cases(torch, timer, x, x, 2, 64,
+                          "float32 outlier-cleaned, Mixtral-8x7B prefill"):
+        record[res.pop("name") + "_mixtral"] = res
+    del x
+
+    t0 = time.perf_counter()
+    params = mixtral.init_params(cfg, seed=0)
+    torch.cuda.synchronize()
+    n_par = llama.param_count(params)
+    step_weights = 2 * (n_par - params["embed"].numel())  # bytes read a step
+    per_layer = llama.param_count(params["layers"]) // n_l
+    full_bytes = 2 * (n_par + per_layer * (full.num_layers - n_l))
+    log(f"e2e mixtral: Mixtral-8x7B, hidden {cfg.hidden_size}, experts "
+        f"{cfg.num_experts} x FFN {cfg.intermediate_size}, top "
+        f"{cfg.experts_per_token}, heads {cfg.num_heads} / kv "
+        f"{cfg.num_kv_heads}, rope theta {cfg.rope_theta}, no window, "
+        f"layers {n_l} of {full.num_layers} ({n_par / 1e9:.2f} B parameters, "
+        f"{2 * n_par / 1e9:.1f} GB bf16; all {full.num_layers} layers, "
+        f"{full_bytes / 1e9:.1f} GB, do not fit the 80 GB card); GEAR int2 "
+        f"group 64 rank 2 "
+        f"prefill rank 4 loop 3 left 0.02 (ko {spec.outliers_per_block}); "
+        f"batch {batch}, prompts {lens} left-padded to {s}, {n_steps} decode "
+        f"steps, max_len {max_len}; random init "
+        f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(0)
+    tokens = torch.zeros((batch, s), dtype=torch.int64)
+    mask = torch.zeros((batch, s), dtype=torch.int32)
+    for i, n in enumerate(lens):
+        tokens[i, s - n:] = torch.from_numpy(rng.integers(1, cfg.vocab_size,
+                                                          n))
+        mask[i, s - n:] = 1
+    tokens, mask = tokens.cuda(), mask.cuda()
+    positions = torch.clamp(torch.cumsum(mask, dim=1) - 1, min=0)
+    prompt_len = mask.sum(dim=1).to(torch.int32)
+    pad = [s - n for n in lens]
+    pad_t = torch.tensor(pad, dtype=torch.int32, device="cuda")
+
+    # warm-up at a short prompt: CUDA modules, cuBLAS handles, both modes
+    wspec = cfg.cache_spec(batch, 384, comp.layer(0))
+    for compress in (True, False):
+        _, wc = mixtral.forward_prefill(params, cfg, tokens[:, -320:],
+                                        positions[:, -320:], mask[:, -320:],
+                                        wspec, compress=compress)
+        mixtral.forward_decode(params, cfg, tokens[:, -1], prompt_len, wc,
+                               spec=wspec, compress=compress, pad_start=pad_t)
+    del wc
+    snap = OUT / "mixtral_snapshot.gear"
+    runs, counts, save_ms = {}, {}, None
+    for mode in ("fused", "raw"):
+        compress = mode == "fused"
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, caches = mixtral.forward_prefill(
+            params, cfg, tokens, positions, mask, spec, compress=compress,
+            generator=gen)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        last = logits[:, -1].clone()
+        del logits
+        toks, step_logits, times = [last.argmax(-1)], [], []
+        for step in range(1, n_steps + 1):  # the main path
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lg, caches = mixtral.forward_decode(
+                params, cfg, toks[-1], prompt_len + step - 1, caches,
+                spec=spec, compress=compress, pad_start=pad_t, generator=gen,
+                step=step)
+            toks.append(lg.argmax(-1))
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            step_logits.append(lg)
+            if compress and step == snap_at:
+                check(caches.comp_len == 8128 and caches.resid_len == 12,
+                      "mixtral: the flush at step 28 came before the "
+                      "snapshot")
+                t0 = time.perf_counter()
+                kvstore.save_cache(snap, caches)
+                save_ms = (time.perf_counter() - t0) * 1e3
+        counts[mode] = kernels.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        faults.check_or_raise({"caches": caches, "prefill": last,
+                               "steps": step_logits}, f"mixtral {mode}")
+        out = torch.stack(toks, dim=1).cpu()
+        check(bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+              f"mixtral {mode}: tokens in range")
+        runs[mode] = dict(last=last, toks=toks, logits=step_logits,
+                          caches=caches)
+        steady = sorted(t for i, t in enumerate(times) if i != 27)
+        median = steady[len(steady) // 2]
+        kv = (spec.bytes_compressed() if compress
+              else spec.bytes_fp16_baseline()) * n_l
+        log(f"e2e mixtral {mode}: prefill_ms={prefill_ms:.1f} "
+            f"median_step_ms={median:.2f} min_step_ms={steady[0]:.2f} "
+            f"step_28_ms={times[27]:.1f} "
+            f"({'the flush' if compress else 'no flush'}) tokens_per_s={batch / median * 1e3:.1f} kv_bytes={kv} (bf16 "
+            f"baseline {spec.bytes_fp16_baseline() * n_l}) "
+            f"max_memory_allocated={peak} launches={counts[mode]} [{card}]")
+
+    f, r = runs["fused"], runs["raw"]
+    check(torch.equal(f["last"], r["last"]) and torch.equal(
+        f["toks"][0], r["toks"][0]), "mixtral: fused and raw take the same "
+        "first token, from the same prefill logits")
+    cf, cr = counts["fused"], counts["raw"]
+    check(cf["decode_attention"] == n_l * n_steps and cf["flash_decode"] == 0
+          and cf["quant_pack_channels"] == n_l
+          and cf["quant_pack_tokens"] == n_l, "mixtral fused: B1 every layer "
+          "and step, B2 / B3 once a layer in the prefill")
+    check(cr["flash_decode"] == n_l * n_steps and cr["decode_attention"] == 0
+          and cr["quant_pack_tokens"] == 0, "mixtral raw: B4 every layer "
+          "and step")
+    agree = float(np.mean([bool(torch.equal(a, b)) for a, b in
+                           zip(f["toks"], r["toks"])]))
+    log(f"e2e mixtral: first token equal in fused and raw mode; int2 fused "
+        f"vs raw greedy agreement over {n_steps + 1} tokens {agree:.3f} "
+        f"(random weights: near-uniform logits)")
+
+    # resume from the snapshot taken after step 40
+    like = TC.init_stacked(spec, n_l, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    resumed = kvstore.load_cache(snap, like)
+    torch.cuda.synchronize()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    del like
+    snap_bytes = snap.stat().st_size
+    snap.unlink()
+    check((resumed.comp_len, resumed.resid_len, resumed.prefill_len)
+          == (8128, 12, 8064), "mixtral: the snapshot's lengths")
+    gen = torch.Generator(device="cuda").manual_seed(2)  # draws nothing
+    for step in range(snap_at + 1, n_steps + 1):
+        lg, resumed = mixtral.forward_decode(
+            params, cfg, f["toks"][step - 1], prompt_len + step - 1, resumed,
+            spec=spec, pad_start=pad_t, generator=gen, step=step)
+        check(torch.equal(lg, f["logits"][step - 1])
+              and torch.equal(lg.argmax(-1), f["toks"][step]),
+              f"mixtral: step {step} after the resume equals the "
+              "uninterrupted run's logits and token bit for bit")
+    for fld in TC.TENSOR_FIELDS:
+        check(torch.equal(getattr(resumed, fld), getattr(f["caches"], fld)),
+              f"mixtral: the resumed cache's {fld} equals the uninterrupted "
+              "one's")
+    log(f"e2e mixtral snapshot after step {snap_at}: {snap_bytes} bytes "
+        f"({snap_bytes / (spec.bytes_fp16_baseline() * n_l):.3f} of the bf16 "
+        f"KV bytes {spec.bytes_fp16_baseline() * n_l}), save_ms={save_ms:.1f} "
+        f"load_ms={load_ms:.1f}, codec "
+        f"{'native' if kvstore.native_available() else 'numpy'}; steps {snap_at + 1}-{n_steps} from it: tokens and logits equal "
+        f"the uninterrupted run's bit for bit [{card}]")
+
+    # B1 on one layer's live cache after the flush, B4 on the raw one
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    q = torch.randn((batch, cfg.num_heads, 1, cfg.head_dim), generator=gen,
+                    device="cuda")
+    record["decode_attention_mixtral"] = hold_decode(
+        torch, timer, "gear int2, Mixtral-8x7B live cache, layer 0", spec,
+        f["caches"].layer(0), q, pad, None)
+    record["flash_decode_mixtral"] = hold_flash(
+        torch, timer, spec, r["caches"].layer(0), q, pad, None)
+
+    # device time a step, and no copy of the expert weights in it
+    for mode, run in (("fused", resumed), ("raw", r["caches"])):
+        state = {"tok": f["toks"][-1] if mode == "fused" else r["toks"][-1],
+                 "step": n_steps + 1, "caches": run}
+
+        def step():
+            lg, state["caches"] = mixtral.forward_decode(
+                params, cfg, state["tok"], prompt_len + state["step"] - 1,
+                state["caches"], spec=spec, compress=mode == "fused",
+                pad_start=pad_t, generator=gen, step=state["step"])
+            state["tok"] = lg.argmax(-1)
+            state["step"] += 1
+
+        device_ms, launches, copy_ms, heavy = profile_steps(torch, step)
+        log(f"e2e mixtral {mode} steps {n_steps + 1}-{n_steps + 5} under the "
+            f"profiler: device_ms_per_step={device_ms:.2f} "
+            f"device_launches_per_step={launches:.0f}; longest copy kernel "
+            f"{copy_ms:.4f} ms; weights read a step {step_weights} bytes, "
+            f"{step_weights / HBM_BYTES_PER_S * 1e3:.2f} ms at 3.35 TB/s; "
+            f"heaviest kernels, ms a step: {heavy} [{card}]")
+        check(copy_ms < 0.25, f"mixtral {mode}: no copy kernel reads the "
+              "expert weights (one layer's stack of one matrix, 940 MB, "
+              "takes >= 0.28 ms to read)")
+    del runs, f, r, resumed
+    # where the raw prefill's device time goes (outside the counted runs)
+    device_ms, launches, _, heavy = profile_steps(
+        torch, lambda: mixtral.forward_prefill(
+            params, cfg, tokens, positions, mask, spec, compress=False),
+        n=1, top=8)
+    log(f"e2e mixtral raw prefill under the profiler: device_ms="
+        f"{device_ms:.1f} launches={launches:.0f}; heaviest kernels, ms: "
+        f"{heavy} [{card}]")
+    del params
+    torch.cuda.empty_cache()
+    return counts
+
+
 def main() -> int:
     import torch
 
@@ -1944,6 +2261,12 @@ def main() -> int:
         "train": lambda: phase_train(torch),
         "e2e h2o sink": lambda: phase_evict(torch, llama_cfg),
         "small h2o sink": lambda: phase_small_evict(torch),
+        # the Mixtral slice: a sparse MoE over the compressed cache at int2
+        # and ~8k context, with a KV snapshot and resume mid-decode
+        "e2e mixtral": lambda: counts.update(mixtral=phase_mixtral(
+            torch, timer, record)),
+        "small mixtral": lambda: (phase_small(torch, "GEARL", "mixtral"),
+                                  phase_small(torch, "GEAR", "mixtral")),
     }
     for name, run in phases.items():
         t0 = time.perf_counter()
@@ -2005,6 +2328,18 @@ def main() -> int:
         ("flash_decode_eval_d32", "flash_decode",
          "gear_tpu_torch/csrc/flash.cu", "gear_tpu/kernels/flash.py:32",
          "eval_cli", "simulated"),
+        ("decode_attention_mixtral", "decode_attention",
+         "gear_tpu_torch/csrc/decode.cu", "gear_tpu/kernels/decode.py:132",
+         "mixtral", "fused"),
+        ("quant_pack_channels_mixtral", "quant_pack_channels",
+         "gear_tpu_torch/csrc/pack.cu", "gear_tpu/kernels/pack.py:90",
+         "mixtral", "fused"),
+        ("quant_pack_tokens_mixtral", "quant_pack_tokens",
+         "gear_tpu_torch/csrc/pack.cu", "gear_tpu/kernels/pack.py:67",
+         "mixtral", "fused"),
+        ("flash_decode_mixtral", "flash_decode",
+         "gear_tpu_torch/csrc/flash.cu", "gear_tpu/kernels/flash.py:32",
+         "mixtral", "raw"),
     ]
     kern = []
     for row, wrapper, src, rep, path, mode in info:

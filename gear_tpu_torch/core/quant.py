@@ -1,7 +1,11 @@
-"""Group-wise asymmetric min/max quantization and byte-strided int32 packing.
+"""Group-wise asymmetric min/max quantization and int32 bit-packing.
 
-PyTorch port of ``gear_tpu/core/quant.py`` (the subset the compressed cache
-uses). Conventions are the reference's:
+PyTorch port of ``gear_tpu/core/quant.py``. Three packing layouts, as there:
+consecutive little-endian (:func:`pack_codes`, the layout of the original
+GEAR kernels), strided (:func:`pack_codes_strided`: word w holds codes
+{j*W + w}) and byte-strided (:func:`pack_codes_bytestrided`: the compressed
+cache's layout, and the one ``native/kvcodec.cc``'s ``gear_pack_u4`` /
+``gear_pack_u2`` write). Conventions are the reference's:
 
   * All primitives operate along the LAST dimension.
   * ``q = clip(round((x - mn) / step), 0, levels)`` with
@@ -75,6 +79,12 @@ def _to_int32_bits(w: torch.Tensor) -> torch.Tensor:
     return torch.where(w >= 2 ** 31, w - 2 ** 32, w).to(torch.int32)
 
 
+def _check_bits(bits: int) -> int:
+    if bits not in (2, 4, 8):
+        raise ValueError("bits must be one of 2, 4, 8")
+    return 32 // bits
+
+
 def pack_codes_bytestrided(codes: torch.Tensor, bits: int) -> torch.Tensor:
     """Pack with the BYTE-STRIDED layout: byte c of a row's byte array holds
     codes {c + m * (n / vpb) | m} at bit position m*bits (vpb = 8 // bits);
@@ -82,12 +92,11 @@ def pack_codes_bytestrided(codes: torch.Tensor, bits: int) -> torch.Tensor:
 
     codes [..., n] int -> int32 [..., n * bits // 32].
     """
-    if bits not in (2, 4, 8):
-        raise ValueError("bits must be one of 2, 4, 8")
+    fpi = _check_bits(bits)
     vpb = 8 // bits
     n = codes.shape[-1]
-    if n % (32 // bits) != 0:
-        raise ValueError(f"last dim {n} not divisible by {32 // bits}")
+    if n % fpi != 0:
+        raise ValueError(f"last dim {n} not divisible by {fpi}")
     nb = n // vpb
     c = codes.to(torch.int64)
     byte = torch.zeros(codes.shape[:-1] + (nb,), dtype=torch.int64,
@@ -103,8 +112,7 @@ def pack_codes_bytestrided(codes: torch.Tensor, bits: int) -> torch.Tensor:
 
 def unpack_codes_bytestrided(packed: torch.Tensor, bits: int) -> torch.Tensor:
     """Inverse of :func:`pack_codes_bytestrided` -> int32 [..., W * 32 // bits]."""
-    if bits not in (2, 4, 8):
-        raise ValueError("bits must be one of 2, 4, 8")
+    _check_bits(bits)
     vpb = 8 // bits
     w = packed.to(torch.int64) & 0xFFFFFFFF
     nw = packed.shape[-1]
@@ -114,3 +122,83 @@ def unpack_codes_bytestrided(packed: torch.Tensor, bits: int) -> torch.Tensor:
     mask = (1 << bits) - 1
     parts = [(byte >> (m * bits)) & mask for m in range(vpb)]
     return torch.cat(parts, dim=-1).to(torch.int32)
+
+
+def pack_codes(codes: torch.Tensor, bits: int) -> torch.Tensor:
+    """Pack codes (values in [0, 2**bits)) into int32 words along the last
+    dim, CONSECUTIVE little-endian: word[i] = sum_j codes[i*fpi + j] <<
+    (bits*j), fpi = 32 // bits.
+
+    codes [..., n] with n % fpi == 0 -> int32 [..., n * bits // 32].
+    """
+    fpi = _check_bits(bits)
+    n = codes.shape[-1]
+    if n % fpi != 0:
+        raise ValueError(f"last dim {n} not divisible by {fpi}")
+    c = codes.to(torch.int64).reshape(*codes.shape[:-1], n // fpi, fpi)
+    word = c[..., 0]
+    for j in range(1, fpi):
+        word = word | (c[..., j] << (bits * j))
+    return _to_int32_bits(word)
+
+
+def unpack_codes(packed: torch.Tensor, bits: int) -> torch.Tensor:
+    """Inverse of :func:`pack_codes` -> int32 codes [..., W * 32 // bits]."""
+    fpi = _check_bits(bits)
+    w = (packed.to(torch.int64) & 0xFFFFFFFF)[..., None]
+    shifts = torch.arange(fpi, dtype=torch.int64, device=packed.device) * bits
+    codes = (w >> shifts) & ((1 << bits) - 1)
+    return codes.reshape(*packed.shape[:-1], packed.shape[-1] * fpi).to(
+        torch.int32)
+
+
+def pack_codes_strided(codes: torch.Tensor, bits: int) -> torch.Tensor:
+    """Pack with the STRIDED lane layout: word w holds codes {j*W + w | j}
+    at bit position j*bits, W = n // fpi.
+
+    codes [..., n] with n % fpi == 0 -> int32 [..., W].
+    """
+    fpi = _check_bits(bits)
+    n = codes.shape[-1]
+    if n % fpi != 0:
+        raise ValueError(f"last dim {n} not divisible by {fpi}")
+    c = codes.to(torch.int64).reshape(*codes.shape[:-1], fpi, n // fpi)
+    shifts = torch.arange(fpi, dtype=torch.int64, device=codes.device) * bits
+    return _to_int32_bits((c << shifts[:, None]).sum(dim=-2))
+
+
+def unpack_codes_strided(packed: torch.Tensor, bits: int) -> torch.Tensor:
+    """Inverse of :func:`pack_codes_strided` -> int32 codes [..., W * fpi]."""
+    fpi = _check_bits(bits)
+    w = packed.to(torch.int64) & 0xFFFFFFFF
+    mask = (1 << bits) - 1
+    return torch.cat([(w >> (j * bits)) & mask for j in range(fpi)],
+                     dim=-1).to(torch.int32)
+
+
+def quantize_and_pack(x: torch.Tensor, bits: int, group_size: int):
+    """:func:`quantize_groups` + :func:`pack_codes` in one call -> (packed
+    int32 [..., n*bits//32], scale [..., n//G], mn [..., n//G])."""
+    codes, scale, mn = quantize_groups(x, bits, group_size)
+    return pack_codes(codes, bits), scale, mn
+
+
+def unpack_and_dequantize(packed: torch.Tensor, scale: torch.Tensor,
+                          mn: torch.Tensor, bits: int, group_size: int,
+                          dtype=torch.float32) -> torch.Tensor:
+    """Inverse of :func:`quantize_and_pack`."""
+    return dequantize_groups(unpack_codes(packed, bits), scale, mn,
+                             group_size, dtype=dtype)
+
+
+def quant_kv_per_token(x: torch.Tensor, bits: int, group_size: int):
+    """Per-token quantization of [B, H, S, D]: groups along the head dim ->
+    (codes [B,H,S,D], scale / mn [B,H,S,D//G])."""
+    return quantize_groups(x, bits, group_size)
+
+
+def quant_kv_per_channel(x: torch.Tensor, bits: int, group_size: int):
+    """Per-channel quantization of [B, H, S, D]: groups along the sequence,
+    on the transposed view -> (codes [B,H,D,S], scale / mn [B,H,D,S//G]),
+    TRANSPOSED."""
+    return quantize_groups(x.transpose(-1, -2), bits, group_size)

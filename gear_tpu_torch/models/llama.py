@@ -173,6 +173,12 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None) -> dict:
     return params
 
 
+def param_count(params: dict) -> int:
+    """Elements over every tensor of a (nested) parameter dict."""
+    return sum(param_count(v) if isinstance(v, dict) else v.numel()
+               for v in params.values())
+
+
 # ---------------------------------------------------------------------------
 # Building blocks
 # ---------------------------------------------------------------------------
@@ -239,16 +245,19 @@ def _causal_attention_blockwise(q, k, v, attn_mask, sliding_window=None,
     b, hq, s, d = q.shape
     hkv = k.shape[1]
     gq = hq // hkv
+    # The chunk halves until it divides the prompt, as in the reference, but
+    # not below 64 tokens: past that the last chunk is short (a prompt of
+    # 8,100 tokens takes 127 chunks, not the reference's 2,025 of 4).
     ck = chunk
-    while s % ck:
+    while s % ck and ck > 64:
         ck //= 2
     qg = q.reshape(b, hkv, gq, s, d).float() * (d ** -0.5)
     qpos = torch.arange(s, device=q.device)
     acc = torch.zeros((b, hkv, gq, s, d), dtype=torch.float32, device=q.device)
     m = torch.full((b, hkv, gq, s), -1e30, dtype=torch.float32, device=q.device)
     l = torch.zeros((b, hkv, gq, s), dtype=torch.float32, device=q.device)
-    for j in range(s // ck):
-        sl = slice(j * ck, (j + 1) * ck)
+    for j in range(0, s, ck):
+        sl = slice(j, min(j + ck, s))
         kj, vj = k[:, :, sl].float(), v[:, :, sl].float()
         scores = torch.einsum("bhgqd,bhkd->bhgqk", qg, kj)
         kpos = qpos[sl]
@@ -273,6 +282,12 @@ def mlp_block(h, wg, wu, wd):
     return (F.silu(h @ wg) * (h @ wu)) @ wd
 
 
+def mlp_ffn(lp: dict, x: torch.Tensor) -> torch.Tensor:
+    """The default feed-forward block of a layer: SwiGLU over ``lp``'s
+    ``wg``, ``wu``, ``wd``."""
+    return mlp_block(x, lp["wg"], lp["wu"], lp["wd"])
+
+
 def _layer_slice(layers: dict, idx: int) -> dict:
     return {k: v[idx] for k, v in layers.items()}
 
@@ -288,22 +303,23 @@ def _qkv(cfg: ModelConfig, lp: dict, h, cos, sin):
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
-def _finish_layer(cfg: ModelConfig, lp: dict, h, attn):
+def _finish_layer(cfg: ModelConfig, lp: dict, h, attn, ffn=mlp_ffn):
     b, s = h.shape[:2]
     h = h + attn.transpose(1, 2).reshape(b, s, -1) @ lp["wo"]
     x2 = rmsnorm(h, lp["mlp_norm"], cfg.rms_eps)
-    return h + mlp_block(x2, lp["wg"], lp["wu"], lp["wd"])
+    return h + ffn(lp, x2)
 
 
-def _layers(params: dict, cfg: ModelConfig, h, cos, sin, mix):
+def _layers(params: dict, cfg: ModelConfig, h, cos, sin, mix, ffn=mlp_ffn):
     """The layer loop every forward pass shares, then the final norm and the
     logits [..., V] f32. ``mix(i, q, k, v) -> attn`` is the pass's own cache
     step and attention for layer ``i`` (q and k as :func:`_qkv` gives
-    them)."""
+    them); ``ffn(lp, x) -> out`` the layer's feed-forward block (Mixtral
+    gives its expert mixture)."""
     for i in range(cfg.num_layers):
         lp = _layer_slice(params["layers"], i)
         q, k, v = _qkv(cfg, lp, h, cos, sin)
-        h = _finish_layer(cfg, lp, h, mix(i, q, k, v))
+        h = _finish_layer(cfg, lp, h, mix(i, q, k, v), ffn)
     h = rmsnorm(h, params["final_norm"], cfg.rms_eps)
     return logits_from_hidden(params, cfg, h)
 
@@ -318,10 +334,10 @@ def forward_prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                     spec: CacheSpec | None, *, compress: bool = True,
                     init: InitFn | None = None,
                     generator: torch.Generator | None = None,
-                    use_lowrank: bool = True, kv_hook=None):
+                    use_lowrank: bool = True, kv_hook=None, ffn=mlp_ffn):
     """Run the prompt, return (logits [B,S,V] f32, caches). No gradient is
     taken (:func:`forward_prefill_grad` is the pass that training
-    differentiates).
+    differentiates). ``ffn(lp, x)`` is each layer's feed-forward block.
 
     With ``spec`` and ``compress``, each layer's KV is compressed into a
     two-tier LayerCache (prefill block at prefill_rank + residual tail), and
@@ -335,7 +351,7 @@ def forward_prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     """
     return _prefill(params, cfg, tokens, positions, attn_mask, spec,
                     compress=compress, init=init, generator=generator,
-                    use_lowrank=use_lowrank, kv_hook=kv_hook)
+                    use_lowrank=use_lowrank, kv_hook=kv_hook, ffn=ffn)
 
 
 def forward_prefill_grad(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
@@ -349,7 +365,7 @@ def forward_prefill_grad(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 
 def _prefill(params, cfg, tokens, positions, attn_mask, spec, *,
              compress=True, init=None, generator=None, use_lowrank=True,
-             kv_hook=None):
+             kv_hook=None, ffn=mlp_ffn):
     h = params["embed"][tokens].to(cfg.dtype)
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
     caches = []
@@ -369,7 +385,7 @@ def _prefill(params, cfg, tokens, positions, attn_mask, spec, *,
             caches.append(raw_prefill(spec, k, v))
         return causal_attention(q, k, v, attn_mask, cfg.sliding_window)
 
-    logits = _layers(params, cfg, h, cos, sin, mix)
+    logits = _layers(params, cfg, h, cos, sin, mix, ffn)
     if spec is None:
         return logits, (torch.stack([c[0] for c in caches]),
                         torch.stack([c[1] for c in caches]))
@@ -385,12 +401,13 @@ def forward_decode(params: dict, cfg: ModelConfig, token: torch.Tensor,
                    pad_start: torch.Tensor | None = None,
                    init: InitFn | None = None,
                    generator: torch.Generator | None = None, step: int = 0,
-                   use_lowrank: bool = True):
+                   use_lowrank: bool = True, ffn=mlp_ffn):
     """One decode step: append KV (in place), attend over the whole cache.
 
     token/position [B]; ``caches`` is the stacked cache from
     :func:`forward_prefill` and is updated in place and returned, with the
-    logits [B, V] f32. ``step`` only labels the init sites.
+    logits [B, V] f32. ``step`` only labels the init sites; ``ffn(lp, x)``
+    is each layer's feed-forward block.
     """
     h = params["embed"][token].to(cfg.dtype)[:, None]
     cos, sin = rope_cos_sin(position[:, None], cfg.head_dim, cfg.rope_theta)
@@ -411,7 +428,7 @@ def forward_decode(params: dict, cfg: ModelConfig, token: torch.Tensor,
         return fused.attend_fused(spec, lc, q, pad_start=pad_start,
                                   window=cfg.sliding_window)
 
-    logits = _layers(params, cfg, h, cos, sin, mix)
+    logits = _layers(params, cfg, h, cos, sin, mix, ffn)
     caches.set_lengths(lc)
     return logits[:, 0], caches
 

@@ -1,0 +1,163 @@
+"""Mixtral (sparse mixture of experts) over the compressed KV cache,
+PyTorch port of ``gear_tpu/models/mixtral.py``.
+
+The attention, the caches and the layer loop are Llama's: the forward
+passes are :func:`models.llama.forward_prefill` / ``forward_decode`` with
+this module's expert mixture as each layer's feed-forward block, so every
+engine mode's cache step and the kernels behind it (``attend_fused`` over
+the compressed cache, ``raw_attend_flash`` over the raw one, the pack
+kernels in the prefill) serve Mixtral unchanged.
+
+The mixture is the reference's: top-k routing with a DENSE weighted sum,
+where every expert runs and the renormalised top-k gates (zero for the
+others) weight the results. Experts are read without copying: the rows of
+the batch are folded into one ``[1, rows, E] @ [NE, E, F]`` product, and
+long prompts run the mixture over chunks of :data:`MOE_ROWS` rows, so the
+``[NE, rows, F]`` intermediates stay bounded. ``moe_block_ep`` (experts
+sharded over devices) is not ported.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+
+import torch
+import torch.nn.functional as F
+
+from ..device import resolve_device
+from . import llama
+from .llama import ModelConfig
+
+MOE_ROWS = 4096  # rows of the mixture at a time ([8, 4096, 14336] bf16: 0.9 GB)
+
+
+@dataclass(frozen=True)
+class MixtralConfig(ModelConfig):
+    num_experts: int = 8
+    experts_per_token: int = 2
+
+    @classmethod
+    def tiny(cls, **kw) -> "MixtralConfig":
+        base = dict(vocab_size=256, hidden_size=64, intermediate_size=128,
+                    num_layers=2, num_heads=4, num_kv_heads=2, head_dim=16,
+                    num_experts=4, experts_per_token=2,
+                    max_position_embeddings=512)
+        base.update(kw)
+        return cls(**base)
+
+    @classmethod
+    def mixtral_8x7b(cls) -> "MixtralConfig":
+        return cls(vocab_size=32000, hidden_size=4096,
+                   intermediate_size=14336, num_layers=32, num_heads=32,
+                   num_kv_heads=8, head_dim=128, rope_theta=1000000.0,
+                   max_position_embeddings=32768, num_experts=8,
+                   experts_per_token=2)
+
+    @classmethod
+    def from_hf(cls, cfg: dict) -> "MixtralConfig":
+        """From a HF MixtralConfig dict (``num_local_experts``,
+        ``num_experts_per_tok`` beside the Llama keys)."""
+        base = ModelConfig.from_hf(cfg)
+        return cls(**{f.name: getattr(base, f.name)
+                      for f in dataclasses.fields(base)},
+                   num_experts=cfg.get("num_local_experts", 8),
+                   experts_per_token=cfg.get("num_experts_per_tok", 2))
+
+
+def init_params(cfg: MixtralConfig, *, seed: int = 0, device=None) -> dict:
+    """Random init from a seeded ``torch.Generator`` on ``device``, in the
+    layout of ``gear_tpu.models.mixtral.init_params`` (``lm_head`` always
+    present). Every stacked tensor is drawn a layer (and an expert) at a
+    time in float32 and cast, so the float32 draws never hold more than one
+    [E, F] matrix."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    e, f, l = cfg.hidden_size, cfg.intermediate_size, cfg.num_layers
+    ne = cfg.num_experts
+    hq, hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    dt = cfg.dtype
+
+    def draw(*shape, scale):
+        # the leading axes are drawn one matrix at a time
+        out = torch.empty(shape, dtype=dt, device=dev)
+        for m in out.view(-1, *shape[-2:]):
+            m.copy_(torch.randn(shape[-2:], generator=gen, device=dev,
+                                dtype=torch.float32).mul_(scale))
+        return out
+
+    return {
+        "embed": draw(cfg.vocab_size, e, scale=0.02),
+        "layers": {
+            "attn_norm": torch.ones((l, e), dtype=dt, device=dev),
+            "mlp_norm": torch.ones((l, e), dtype=dt, device=dev),
+            "wq": draw(l, e, hq * dh, scale=e ** -0.5),
+            "wk": draw(l, e, hkv * dh, scale=e ** -0.5),
+            "wv": draw(l, e, hkv * dh, scale=e ** -0.5),
+            "wo": draw(l, hq * dh, e, scale=(hq * dh) ** -0.5),
+            "router": draw(l, e, ne, scale=e ** -0.5),
+            "wg": draw(l, ne, e, f, scale=e ** -0.5),
+            "wu": draw(l, ne, e, f, scale=e ** -0.5),
+            "wd": draw(l, ne, f, e, scale=f ** -0.5),
+        },
+        "final_norm": torch.ones((e,), dtype=dt, device=dev),
+        "lm_head": draw(e, cfg.vocab_size, scale=e ** -0.5),
+    }
+
+
+def moe_block(x: torch.Tensor, router: torch.Tensor, wg: torch.Tensor,
+              wu: torch.Tensor, wd: torch.Tensor, top_k: int) -> torch.Tensor:
+    """Sparse-MoE FFN as a dense weighted mixture.
+
+    x [B,S,E]; router [E,NE]; wg / wu [NE,E,F]; wd [NE,F,E]. Routing as the
+    reference (HF Mixtral): float32 logits, softmax over the experts, every
+    expert whose probability reaches the k-th largest kept (so ties keep
+    more than k), the kept renormalised. The expert products, ``silu`` and
+    ``h_g * h_u`` run in the model dtype, the weighted sum over the experts
+    in float32, cast back at the end.
+    """
+    b, s, e = x.shape
+    probs = torch.softmax(x.float() @ router.float(), dim=-1)   # [B,S,NE]
+    thresh = probs.topk(top_k, dim=-1).values[..., -1:]
+    gate = torch.where(probs >= thresh, probs, torch.zeros_like(probs))
+    gate = (gate / gate.sum(dim=-1, keepdim=True)).reshape(b * s, -1).T
+    xr = x.reshape(1, b * s, e)
+    out = torch.empty((b * s, e), dtype=torch.float32, device=x.device)
+    rows = MOE_ROWS
+    for r in range(0, b * s, rows):
+        xc = xr[:, r:r + rows]
+        h = F.silu(xc @ wg) * (xc @ wu)                         # [NE,n,F]
+        y = (h @ wd).float()                                    # [NE,n,E]
+        out[r:r + rows] = (y * gate[:, r:r + rows, None]).sum(dim=0)
+    return out.to(x.dtype).reshape(b, s, e)
+
+
+def _moe_ffn(cfg: MixtralConfig):
+    def ffn(lp: dict, x: torch.Tensor) -> torch.Tensor:
+        return moe_block(x, lp["router"], lp["wg"], lp["wu"], lp["wd"],
+                         cfg.experts_per_token)
+    return ffn
+
+
+def forward_prefill(params: dict, cfg: MixtralConfig, tokens: torch.Tensor,
+                    positions: torch.Tensor, attn_mask: torch.Tensor,
+                    spec, *, compress: bool = True, init=None,
+                    generator: torch.Generator | None = None):
+    """The prompt pass -> (logits [B,S,V] f32, stacked caches): compressed
+    with ``spec`` and ``compress``, raw with ``compress=False``, the stacked
+    (k, v) without ``spec``. Inits as :func:`models.llama.forward_prefill`."""
+    return llama.forward_prefill(
+        params, cfg, tokens, positions, attn_mask, spec, compress=compress,
+        init=init, generator=generator, ffn=_moe_ffn(cfg))
+
+
+def forward_decode(params: dict, cfg: MixtralConfig, token: torch.Tensor,
+                   position: torch.Tensor, caches, *, spec,
+                   compress: bool = True,
+                   pad_start: torch.Tensor | None = None, init=None,
+                   generator: torch.Generator | None = None, step: int = 0):
+    """One decode step over the stacked caches (updated in place) ->
+    (logits [B, V] f32, caches), as :func:`models.llama.forward_decode`."""
+    return llama.forward_decode(
+        params, cfg, token, position, caches, spec=spec, compress=compress,
+        pad_start=pad_start, init=init, generator=generator, step=step,
+        ffn=_moe_ffn(cfg))

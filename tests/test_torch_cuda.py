@@ -728,3 +728,118 @@ def test_evicting_engine_on_the_card_matches_the_cpu(cuda, mode):
                               batch_size=2, device=dev)
         outs[dev.type] = eng.generate(prompts, 30)
     assert outs["cuda"] == outs["cpu"]
+
+
+# The Mixtral-8x7B path's shapes (chip_smoke.py "e2e mixtral"): batch 2,
+# 8 kv / 32 q heads, head_dim 128, GEAR int2 with 2% outliers (162 a block),
+# group 64, prompts of 8,100 tokens (one left-padded by 200), max_len 8,320.
+MIXTRAL_SPEC = dict(batch=2, num_kv_heads=8, head_dim=128, max_len=8320,
+                    bits=2, group=64, rank=2, prefill_rank=4, lowrank_loop=3,
+                    outliers_per_block=162)
+
+
+def test_decode_kernel_at_mixtral_shapes(cuda):
+    """B1 over a cache built by the port's prefill of 8,100 tokens and 30
+    appends (the flush at the 28th), GQ 4, int2, 2% outliers, no window."""
+    spec = TC.CacheSpec(**MIXTRAL_SPEC)
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    shape = (2, 8, 8100, 128)
+    k = torch.randn(shape, generator=gen, device=cuda).bfloat16()
+    v = torch.randn(shape, generator=gen, device=cuda).bfloat16()
+    cache = TC.prefill(spec, k, v, generator=gen)
+    del k, v
+    for _ in range(30):
+        kn = torch.randn((2, 8, 1, 128), generator=gen, device=cuda)
+        TC.append(spec, cache, kn.bfloat16(), (kn * 0.5).bfloat16(),
+                  generator=gen)
+    assert (cache.comp_len, cache.resid_len) == (8128, 2)
+    q = torch.randn((2, 32, 1, 128), generator=gen, device=cuda)
+    pad = torch.tensor([0, 200], dtype=torch.int32, device=cuda)
+    before = TK.decode_attention.launches
+    got = TK.attend_fused(spec, cache, q, pad_start=pad)
+    assert TK.decode_attention.launches == before + 1
+    want = TC.attend(spec, cache, q, pad_start=pad)
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.parametrize("which", ["tokens", "channels"])
+def test_pack_kernels_at_mixtral_shapes(cuda, which):
+    """B3 / B2 on the GEAR prefill's blocks, 2 x 8 rows of 8,064 tokens,
+    outliers replaced by the block mean (the float32 block the GEAR route
+    hands both), int2: bit-equal to their plain versions."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    x = torch.randn((16, 8064, 128), generator=gen, device=cuda)
+    x = chip_smoke.cleaned_blocks(torch, x.bfloat16().float(), 8)
+    kern, plain, kw = ((TP.quant_pack_tokens, TP.quant_pack_tokens_plain,
+                        dict(v_group=64)) if which == "tokens" else
+                       (TP.quant_pack_channels, TP.quant_pack_channels_plain,
+                        dict(group=64)))
+    before = kern.launches
+    got = kern(x, bits=2, **kw)
+    assert kern.launches == before + 1
+    for a, b in zip(got, plain(x, bits=2, **kw)):
+        assert a.shape == b.shape and torch.equal(a, b)
+
+
+def test_flash_kernel_at_mixtral_shapes(cuda):
+    """B4 over a [2, 8, 8320, 128] bf16 raw cache, GQ 4, 8,180 tokens, one
+    row left-padded by 200, no window."""
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    spec = TC.CacheSpec(batch=2, num_kv_heads=8, head_dim=128, max_len=8320)
+    k = torch.randn((2, 8, 8320, 128), generator=gen, device=cuda).bfloat16()
+    v = torch.randn((2, 8, 8320, 128), generator=gen, device=cuda).bfloat16()
+    c = llama.RawLayerCache(k=k, v=v, length=8180)
+    q = torch.randn((2, 32, 1, 128), generator=gen, device=cuda)
+    pad = torch.tensor([0, 200], dtype=torch.int32, device=cuda)
+    before = TF.flash_decode.launches
+    got = TF.raw_attend_flash(spec, c, q, pad_start=pad)
+    assert TF.flash_decode.launches == before + 1
+    want = llama.raw_attend(spec, c, q, pad_start=pad)
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.parametrize("compress", [True, False], ids=["fused", "raw"])
+def test_small_mixtral_on_the_card_matches_the_cpu(cuda, compress):
+    """A tiny bf16 Mixtral (the kernels take bf16 caches), GEAR int4:
+    prefill and 20 decode steps (a flush at 16) on the card (kernels) and on
+    the CPU (plain path), the same inits and tokens: logits within the
+    lockstep limit of each other."""
+    from gear_tpu_torch.models import mixtral
+
+    cfg = mixtral.MixtralConfig.tiny(hidden_size=128, head_dim=32)
+    params = mixtral.init_params(cfg, seed=5, device="cpu")
+    comp = CompressionConfig(num_layers=cfg.num_layers, quantize_bit=4,
+                             group_size=16, rank=2, prefill_rank=4, loop=2)
+    spec = cfg.cache_spec(2, 64, comp.layer(0))
+    tokens = torch.tensor([[0, 0, 5, 9, 2, 7, 11, 3], [4, 1, 6, 8, 2, 5, 7,
+                                                       9]])
+    mask = (torch.arange(8) >= torch.tensor([[2], [0]])).long()
+    pos = torch.clamp(mask.cumsum(1) - 1, min=0)
+
+    def init(site, shape):  # the same power-iteration inits on both sides
+        g = torch.Generator().manual_seed(hash(site) % (1 << 31))
+        return torch.rand(shape, generator=g)
+
+    runs, toks = {}, None
+    for dev in (torch.device("cpu"), cuda):  # the CPU's tokens feed both
+        p = {k: ({kk: vv.to(dev) for kk, vv in v.items()}
+                 if isinstance(v, dict) else v.to(dev))
+             for k, v in params.items()}
+        logits, caches = mixtral.forward_prefill(
+            p, cfg, tokens.to(dev), pos.to(dev), mask.to(dev), spec,
+            compress=compress, init=init)
+        out = [logits[:, -1].cpu()]
+        if toks is None:
+            toks = [out[0].argmax(-1)]
+        for step in range(20):
+            lg, caches = mixtral.forward_decode(
+                p, cfg, toks[step].to(dev), (mask.sum(1) + step).to(dev),
+                caches, spec=spec, compress=compress,
+                pad_start=torch.tensor([2, 0], device=dev), init=init,
+                step=step)
+            out.append(lg.cpu())
+            if len(toks) <= step + 1:
+                toks.append(out[-1].argmax(-1))
+        runs[dev.type] = torch.stack(out)
+    err = (runs["cuda"] - runs["cpu"]).abs().max() / runs["cpu"].abs().max()
+    assert float(err) < chip_smoke.LOCKSTEP_LIMIT

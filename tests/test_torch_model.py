@@ -195,7 +195,9 @@ def test_port_imports_no_jax():
             "gear_tpu_torch.paged, gear_tpu_torch.serving, "
             "gear_tpu_torch.h2o, gear_tpu_torch.sink, gear_tpu_torch.metrics, "
             "gear_tpu_torch.eval.harness, gear_tpu_torch.eval.synth, "
-            "gear_tpu_torch.eval.run, gear_tpu_torch.tools.acc_run; "
+            "gear_tpu_torch.eval.run, gear_tpu_torch.tools.acc_run, "
+            "gear_tpu_torch.models.mixtral, gear_tpu_torch.runtime.kvstore, "
+            "gear_tpu_torch.runtime.faults; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'gear_tpu')]; "
             "assert not bad, bad; print('ok')")
