@@ -19,9 +19,10 @@ Phases, each printing lines of its own:
      caches built by the port's own prefill + append across a flush: GEARL
      (bits 2/4/8, GQA 32/8 heads, left padding, a sliding window that cuts
      into the prefix), GEAR with 162 outliers per block (int4, int2, GQA),
-     int8 bases, GEAR + int8 bases + KCVT together, no low-rank term, and
+     int8 bases, GEAR + int8 bases + KCVT together, no low-rank term,
      GEARL and GEAR at the shapes the two end-to-end paths below give the
-     kernel;
+     kernel, and both at the shapes one of two tensor-parallel ranks gives
+     it (16 of the Llama path's 32 kv heads; 4 of Mistral's 8, GQ 4);
   4. the flash-decode kernel against the plain ``raw_attend`` over bf16 raw
      caches (32 heads and 8 kv / 32 q heads, 1,930 and 4,400 valid tokens,
      left padding, a window), with ``scaled_dot_product_attention`` timed
@@ -103,7 +104,25 @@ Phases, each printing lines of its own:
      bit, ``runtime.faults`` over caches and logits, no copy of the expert
      weights in a profiled step;
   17. a small Mixtral in fused mode (GEARL, then GEAR) in lockstep on the
-     card and on the CPU, as phase 7.
+     card and on the CPU, as phase 7;
+  18. parallelism: the unsharded references here, then two gloo ranks on
+     cuda:0 (this script with ``--parallel-rank``; NCCL refuses two ranks
+     on one card), each held in lockstep against the references (every
+     position's logits within ``LOCKSTEP_LIMIT`` of the largest, greedy
+     tokens parting only where the two are the top two of both runs, and
+     what the sharded ``generate`` returned equal to the unsharded tokens
+     up to each row's first parting): tensor parallelism (TP 2) over
+     Llama-2-7B at full width and 8 layers, the Llama path's batch and
+     prompts, fused and raw through ``GearLM.shard`` (B1 / B4 at 16 kv
+     heads a rank, B1 held against ``cache.attend`` on each rank's layer 0);
+     sequence parallelism (2 shards of 4,096 tokens) over an 8,000-token
+     prompt, 80 tokens across a flush on the last shard; Mistral-7B at TP 2
+     (B1 at 4 kv heads, GQ 4, the window), 16 tokens, also in lockstep;
+     expert parallelism (EP 2) over Mixtral-8x7B at full width and 4
+     layers, GEAR int2, batch 2, 20 steps, ``moe_block_ep`` (each rank's
+     experts from ``shard_experts``) against ``moe_block``. Each path's device
+     ms and launches a step, its collectives' ms alone, the host median and
+     the peak memory a rank, all taken with two ranks sharing the card.
 
 Any failed check raises, so the script exits non-zero. The second-to-last
 line is the kernels' JSON record; the last is
@@ -114,6 +133,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import re
 import subprocess
 import sys
@@ -123,8 +143,6 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "gear_tpu_torch" / "_build"
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory (NVIDIA data sheet)
-FP32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
 EARLIER_DEPTH = 8  # layers (of 32) of the earlier slices' 7B paths
 TOL_DECODE = dict(rtol=1e-3, atol=1e-4)  # both float32; sum order differs
 LOCKSTEP_LIMIT = 5e-2  # max |card - CPU| / max |CPU| logits, bf16 weights
@@ -142,9 +160,12 @@ def nvidia_smi() -> str:
 
 
 def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    """The card's least ms for ``nbytes`` moved and ``ops`` float32
+    operations (``profiling.H100_SXM``, NVIDIA's data sheet)."""
+    from gear_tpu_torch.profiling import H100_SXM
+
+    t, by = H100_SXM.bound_s(nbytes, ops)
+    return t * 1e3, by
 
 
 class Timer:
@@ -362,6 +383,9 @@ MAIN_PATH_KERNELS = (
     ("B4 Mixtral-8x7B", "flash_split_kernel<4>"),
     ("B3 Mixtral-8x7B", "token_kernel<float,2,1>"),
     ("B2 Mixtral-8x7B", "channel_kernel<float,2>"),
+    ("B1 eval", "decode_split_kernel<4,2,0,0>"),
+    ("B3 eval", "token_kernel<bf16,4,1>"),
+    ("B4 eval", "flash_split_kernel<2>"),
 )
 FLASH_KERNELS = ("flash_split_kernel", "attn_merge_kernel")
 
@@ -515,6 +539,17 @@ def phase_decode(torch, timer, record):
     record["decode_attention_gear"] = res
     for fam, err in worst.items():  # the largest error over all its cases
         record[fam]["max_abs_err"] = err
+    # B1 at the shapes a rank of two gives it under tensor parallelism: the
+    # Llama-2-7B path's 16 of 32 kv heads, and Mistral-7B's 4 of 8 kv heads
+    # with 16 of 32 query heads (GQ 4) and the window
+    record["decode_attention_tp"] = decode_case(
+        torch, timer, gen, "gearl int4, Llama-2-7B TP-rank shapes", dict(),
+        16, 16, [24, 0, 47, 13], None, b=4, t=1152, n_prefill=1024,
+        n_append=70)
+    record["decode_attention_tp_mistral"] = decode_case(
+        torch, timer, gen, "gear int4, Mistral-7B TP-rank shapes",
+        dict(outliers_per_block=162), 4, 16, [0, 130], 4096, b=2, t=4480,
+        n_prefill=4352, n_append=70)
 
 
 FLASH_CASES = [  # (kv heads, q heads, batch, max_len, length, pad, window, row)
@@ -2171,7 +2206,7 @@ def phase_mixtral(torch, timer, record):
             f"profiler: device_ms_per_step={device_ms:.2f} "
             f"device_launches_per_step={launches:.0f}; longest copy kernel "
             f"{copy_ms:.4f} ms; weights read a step {step_weights} bytes, "
-            f"{step_weights / HBM_BYTES_PER_S * 1e3:.2f} ms at 3.35 TB/s; "
+            f"{bound_ms(step_weights, 0)[0]:.2f} ms at 3.35 TB/s; "
             f"heaviest kernels, ms a step: {heavy} [{card}]")
         check(copy_ms < 0.25, f"mixtral {mode}: no copy kernel reads the "
               "expert weights (one layer's stack of one matrix, 940 MB, "
@@ -2190,9 +2225,589 @@ def phase_mixtral(torch, timer, record):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# The parallel slice: tensor, sequence and expert parallelism, two gloo
+# ranks on the one card.
+# ---------------------------------------------------------------------------
+
+PARALLEL_RANKS = 2
+PARALLEL_TIMEOUT = 420  # seconds for both ranks, every path
+PARALLEL_NOTE = ("two ranks sharing one card, gloo copying each collective "
+                 "through host memory: a correctness run, not a production "
+                 "speed")
+TP_PROMPTS = [1000, 1024, 977, 1011]      # the Llama-2-7B cell's batch
+SEQ_PROMPT, SEQ_MAX_LEN = 8000, 8192      # two shards of 4,096 tokens
+MISTRAL_PROMPTS, MISTRAL_MAX_LEN, MISTRAL_STEPS = [4300, 4210], 4480, 15
+EP_PROMPTS, EP_MAX_LEN, EP_STEPS = [1000, 960], 1088, 20
+MIXTRAL_EP_DEPTH = 4  # of 32 layers
+
+
+def parallel_prompts(vocab: int, lens) -> list[list[int]]:
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    return [rng.integers(1, vocab, n).tolist() for n in lens]
+
+
+def parallel_comp(cfg, method: str, bits: int):
+    from gear_tpu_torch.config import CompressionConfig
+
+    return CompressionConfig(num_layers=cfg.num_layers,
+                             compress_method=method, quantize_bit=bits,
+                             group_size=64, rank=2, prefill_rank=4, loop=3,
+                             left=0.02)
+
+
+def parallel_engine(cfg, params, method, batch, max_len, mode="fused"):
+    from gear_tpu_torch.engine import EngineConfig, InferenceEngine
+
+    return InferenceEngine(cfg, params, parallel_comp(cfg, method, 4),
+                           EngineConfig(max_len=max_len, mode=mode),
+                           batch_size=batch)
+
+
+def lockstep_run(torch, eng, prompts, n_steps, feed=None, times=None,
+                 draws=None):
+    """What ``eng.generate(prompts, n_steps + 1)`` runs (its stages, the
+    generator seeded 0), fed the tokens ``feed`` (one [B] tensor a position)
+    in place of its own greedy ones when given. Returns the greedy tokens
+    and the logits (CPU float32) at the prompt's last position and every
+    step, the caches, the left padding and the state to go on from; each
+    step's host ms is appended to ``times``. The power-iteration inits are
+    drawn as the engine draws them (uniform from the generator, at the
+    shape asked for), and each draw's site, shape and sum is appended to
+    ``draws``: a sharded engine asks for the whole batch's and heads'."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def init(site, shape):
+        x = torch.rand(shape, generator=gen, device="cuda",
+                       dtype=torch.float32)
+        draws.append((tuple(int(v) if isinstance(v, torch.Tensor) else v
+                            for v in site), tuple(shape),
+                       float(x.double().sum())))
+        return x
+
+    init = None if draws is None else init
+    s = eng.bucket_len(max(len(p) for p in prompts))
+    tokens, mask = eng.left_pad(prompts, 0, s)
+    logits, caches = eng.prefill(tokens, mask, init=init, generator=gen)
+    prompt_len = mask.sum(dim=1).to(torch.int32)
+    pad = (s - prompt_len).to(torch.int32)
+    outs, toks = [logits[:, -1].float().cpu()], [logits[:, -1].argmax(-1)]
+    del logits
+    if eng.seq_mesh is not None:
+        from gear_tpu_torch.parallel import context
+
+        n = eng.seq_mesh.axis_size(eng.seq_axis)
+        caches = context.split_cache(eng.spec, caches, n)[
+            eng.seq_mesh.index(eng.seq_axis)]
+    for i in range(n_steps):
+        cur = toks[-1] if feed is None else feed[i].cuda()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        nxt, lg, caches = eng.decode_step(caches, cur, prompt_len + i, pad,
+                                          step=i, init=init, generator=gen,
+                                          n_tokens=s + i)
+        torch.cuda.synchronize()
+        if times is not None:
+            times.append((time.perf_counter() - t0) * 1e3)
+        outs.append(lg.float().cpu())
+        toks.append(nxt)
+    state = dict(caches=caches, cur=toks[-1], prompt_len=prompt_len, pad=pad,
+                 gen=gen, s=s, step=n_steps)
+    return [t.cpu() for t in toks], outs, state
+
+
+def compare_lockstep(torch, ref_logits, got_logits):
+    """The worst |got - ref| / max |ref| over the positions, the share of
+    greedy tokens alike, and where they part: for each parting its
+    position, row, the place of the other run's token in each run's order
+    (0 the top: ``ref_rank`` of got's token among the reference's logits,
+    ``got_rank`` of the reference's token among got's), the reference's
+    margin between the two, and the row's largest |got - ref| (``err``).
+    :func:`near_tie` judges a parting; :func:`top_two` is reported."""
+    worst, same, total, parts = 0.0, 0, 0, []
+    for i, (r, g) in enumerate(zip(ref_logits, got_logits)):
+        d = (g - r).abs()
+        worst = max(worst, float(d.max()) / float(r.abs().max()))
+        rt, gt = r.argmax(-1), g.argmax(-1)
+        same += int((rt == gt).sum())
+        total += rt.numel()
+        for row in (rt != gt).nonzero().flatten().tolist():
+            a, b = int(rt[row]), int(gt[row])
+            parts.append(dict(
+                pos=i, row=row, ref_rank=int((r[row] > r[row, b]).sum()),
+                got_rank=int((g[row] > g[row, a]).sum()),
+                margin=round(float(r[row, a] - r[row, b]), 4),
+                err=round(float(d[row].max()), 4)))
+    return worst, same / total, parts
+
+
+def near_tie(part: dict) -> bool:
+    """Whether a parting of :func:`compare_lockstep` is one at a near-tie:
+    the reference's margin lies within the row's largest |got - ref|. (Two
+    errors of at most ``err`` can swap tokens up to twice that apart, so
+    this fails where both tokens' errors had to be near the row's largest,
+    in opposite directions.)"""
+    return part["margin"] <= part["err"]
+
+
+def top_two(part: dict) -> bool:
+    """The eval phase's rule for a parting (card against CPU): each run's
+    token is the other's second, so the two are the top two of both runs.
+    Reported only: near-uniform logits over 32,000 tokens put a third token
+    between the two at some partings."""
+    return part["ref_rank"] == 1 and part["got_rank"] == 1
+
+
+def check_generated(key, tokens, ref_toks, got_toks, parts):
+    """``tokens`` (what the sharded ``generate`` returned, every row) must
+    be the reference's greedy tokens up to each row's first parting in
+    lockstep; at that parting, the reference's token or the sharded
+    lockstep run's own (both stand at a near-tie); after it the runs have
+    parted and nothing is compared. Returns the tokens compared."""
+    first, compared = {}, 0
+    for p in parts:  # parts come in position order
+        first.setdefault(p["row"], p["pos"])
+    for row, got_row in enumerate(tokens):
+        ref_row = [int(t[row]) for t in ref_toks]
+        upto = first.get(row, len(ref_row))
+        check(len(got_row) == len(ref_row)
+              and got_row[:upto] == ref_row[:upto],
+              f"parallel {key}: row {row} of the sharded generate equals the "
+              f"unsharded tokens up to its first parting ({upto})")
+        if upto < len(ref_row):
+            check(got_row[upto] in (ref_row[upto], int(got_toks[upto][row])),
+                  f"parallel {key}: row {row} parts at {upto} to one of the "
+                  f"two tied tokens")
+        compared += min(upto + 1, len(ref_row))
+    return compared
+
+
+def continue_steps(eng, state, torch):
+    """A decode step function that goes on from ``lockstep_run``'s state
+    with its own greedy tokens."""
+    def step():
+        i = state["step"]
+        state["cur"], _, state["caches"] = eng.decode_step(
+            state["caches"], state["cur"], state["prompt_len"] + i,
+            state["pad"], step=i, generator=state["gen"],
+            n_tokens=state["s"] + i)
+        state["step"] += 1
+    return step
+
+
+def collective_ms(torch, mesh, axis, calls, n=20) -> float:
+    """Host ms of one step's collectives alone: ``calls`` [(shape, op)]
+    each an ``all_reduce`` of a float32 tensor on the card, synchronised
+    before and after, a mean over ``n`` repeats."""
+    from gear_tpu_torch.parallel import distributed
+
+    bufs = [(torch.ones(shape, device="cuda"), op) for shape, op in calls]
+    distributed.all_reduce(bufs[0][0], mesh, axis)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        for x, op in bufs:
+            distributed.all_reduce(x, mesh, axis, op)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def parallel_references(torch, llama_cut, mixtral_cfg) -> dict:
+    """The unsharded runs the ranks are held against, in lockstep: the
+    Llama-2-7B cell fused and raw, the 8,000-token prompt fused, Mistral-7B
+    at the TP rows' batch, and Mixtral's dense mixture over the compressed
+    cache. Each engine's own ``generate`` must return the greedy tokens of
+    :func:`lockstep_run`, which the ranks' ``generate`` is held against."""
+    from gear_tpu_torch.models import llama, mistral, mixtral
+
+    refs = {}
+
+    def ref(key, eng, prompts, n_steps):
+        draws = []
+        toks, outs, _ = lockstep_run(torch, eng, prompts, n_steps,
+                                     draws=draws)
+        want = eng.generate(prompts, n_steps + 1)
+        check(want == torch.stack(toks, dim=1).tolist(),
+              f"parallel {key}: the unsharded generate repeats the "
+              f"reference's greedy tokens")
+        refs[key] = dict(toks=toks, logits=outs, draws=draws)
+
+    params = llama.init_params(llama_cut, seed=0)
+    prompts = parallel_prompts(llama_cut.vocab_size, TP_PROMPTS)
+    for mode in ("fused", "raw"):
+        ref(f"tp {mode}", parallel_engine(llama_cut, params, "GEARL", 4,
+                                          1152, mode), prompts, 79)
+    ref("seq", parallel_engine(llama_cut, params, "GEARL", 1, SEQ_MAX_LEN),
+        parallel_prompts(llama_cut.vocab_size, [SEQ_PROMPT]), 79)
+    del params
+    torch.cuda.empty_cache()
+    mcut = dataclasses.replace(mistral.mistral_7b(), num_layers=EARLIER_DEPTH)
+    params = llama.init_params(mcut, seed=0)
+    ref("tp mistral", parallel_engine(mcut, params, "GEAR", 2,
+                                      MISTRAL_MAX_LEN),
+        parallel_prompts(mcut.vocab_size, MISTRAL_PROMPTS), MISTRAL_STEPS)
+    del params
+    torch.cuda.empty_cache()
+
+    params = mixtral.init_params(mixtral_cfg, seed=0)
+    toks, outs, _ = mixtral_lockstep(torch, mixtral_cfg, params, None)
+    refs["ep"] = dict(toks=toks, logits=outs)
+    # one layer's mixture, for moe_block_ep to be held against
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    x = torch.randn((2, 64, mixtral_cfg.hidden_size), generator=gen,
+                    device="cuda").bfloat16()
+    lp = llama._layer_slice(params["layers"], 0)
+    refs["moe"] = dict(x=x.cpu(), out=mixtral.moe_block(
+        x, lp["router"], lp["wg"], lp["wu"], lp["wd"],
+        mixtral_cfg.experts_per_token).cpu())
+    del params, lp
+    torch.cuda.empty_cache()
+    return refs
+
+
+def mixtral_lockstep(torch, cfg, params, feed, ep_mesh=None, times=None):
+    """Mixtral's prefill and ``EP_STEPS`` decode steps through
+    ``models.mixtral`` (GEAR int2, 2% outliers), optionally fed ``feed``:
+    (tokens, logits) as :func:`lockstep_run` gives them, and a step
+    function that goes on with its own greedy tokens."""
+    from gear_tpu_torch.models import mixtral
+
+    spec = cfg.cache_spec(2, EP_MAX_LEN, parallel_comp(cfg, "GEAR", 2)
+                          .layer(0))
+    prompts = parallel_prompts(cfg.vocab_size, EP_PROMPTS)
+    s = 1024
+    tokens = torch.zeros((2, s), dtype=torch.int64)
+    mask = torch.zeros((2, s), dtype=torch.int32)
+    for i, p in enumerate(prompts):
+        tokens[i, s - len(p):] = torch.tensor(p)
+        mask[i, s - len(p):] = 1
+    tokens, mask = tokens.cuda(), mask.cuda()
+    positions = torch.clamp(torch.cumsum(mask, dim=1) - 1, min=0)
+    prompt_len = mask.sum(dim=1).to(torch.int32)
+    pad = (s - prompt_len).to(torch.int32)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    logits, caches = mixtral.forward_prefill(params, cfg, tokens, positions,
+                                             mask, spec, generator=gen,
+                                             ep_mesh=ep_mesh)
+    outs, toks = [logits[:, -1].float().cpu()], [logits[:, -1].argmax(-1)]
+    del logits
+    state = {"caches": caches, "i": 0}
+
+    def step(cur=None):
+        i = state["i"]
+        lg, state["caches"] = mixtral.forward_decode(
+            params, cfg, toks[-1] if cur is None else cur, prompt_len + i,
+            state["caches"], spec=spec, pad_start=pad, generator=gen, step=i,
+            ep_mesh=ep_mesh)
+        toks.append(lg.argmax(-1))
+        state["i"] += 1
+        return lg
+
+    for i in range(EP_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lg = step(None if feed is None else feed[i].cuda())
+        torch.cuda.synchronize()
+        if times is not None:
+            times.append((time.perf_counter() - t0) * 1e3)
+        outs.append(lg.float().cpu())
+    return [t.cpu() for t in toks], outs, step
+
+
+def phase_parallel(torch, record, counts, llama_cut):
+    """Tensor, sequence and expert parallelism through the port's entry
+    points, as ``PARALLEL_RANKS`` processes on the one card over gloo
+    (NCCL refuses two ranks on one card): the unsharded references run
+    here first, then the ranks (this script with ``--parallel-rank``) run
+    every path and are held against them in lockstep. Any rank that fails,
+    raises or outlives ``PARALLEL_TIMEOUT`` fails the phase."""
+    import dataclasses as dc
+
+    from gear_tpu_torch.models import mixtral
+
+    mode = subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    log(f"parallel: backend gloo, {PARALLEL_RANKS} ranks on cuda:0, card "
+        f"compute mode {mode}")
+    mcfg = dc.replace(mixtral.MixtralConfig.mixtral_8x7b(),
+                      num_layers=MIXTRAL_EP_DEPTH)
+    t0 = time.perf_counter()
+    refs = parallel_references(torch, llama_cut, mcfg)
+    ref_path = OUT / "parallel_refs.pt"
+    torch.save(refs, ref_path)
+    del refs
+    torch.cuda.empty_cache()
+    log(f"parallel: unsharded references in {time.perf_counter() - t0:.1f} s")
+    init = OUT / "parallel_rendezvous"
+    init.unlink(missing_ok=True)
+    logs = [OUT / f"parallel_rank{r}.log" for r in range(PARALLEL_RANKS)]
+    results = [OUT / f"parallel_rank{r}.json" for r in range(PARALLEL_RANKS)]
+    for f in results:
+        f.unlink(missing_ok=True)
+    procs = []
+    for r in range(PARALLEL_RANKS):
+        env = {**os.environ, "WORLD_SIZE": str(PARALLEL_RANKS),
+               "RANK": str(r)}
+        with open(logs[r], "w") as f:
+            procs.append(subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"),
+                 "--parallel-rank", f"file://{init}", str(ref_path)],
+                stdout=f, stderr=subprocess.STDOUT, env=env, cwd=ROOT))
+    t0 = time.perf_counter()
+    try:
+        for p in procs:
+            left = PARALLEL_TIMEOUT - (time.perf_counter() - t0)
+            p.wait(timeout=max(left, 1))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        ref_path.unlink(missing_ok=True)
+    res = []
+    for r, p in enumerate(procs):
+        if results[r].exists():
+            res.append(json.loads(results[r].read_text()))
+            for line in res[-1]["lines"]:
+                log(f"parallel rank {r}: {line}")
+        if p.returncode != 0:
+            log(f"parallel rank {r} exited {p.returncode}; its log's end:\n"
+                f"{logs[r].read_text()[-3000:]}")
+    for r, p in enumerate(procs):
+        check(p.returncode == 0, f"parallel rank {r} ran every path and "
+              f"held it")
+    counts["tp"] = {m: res[0]["counts"][f"tp {m}"] for m in ("fused", "raw")}
+    counts["tp_mistral"] = {"fused": res[0]["counts"]["tp mistral"]}
+    row = record.get("decode_attention_tp")
+    if row:  # the decode phase's case and both ranks' live caches
+        row["max_abs_err"] = max([row["max_abs_err"]]
+                                 + [rr["b1_err"] for rr in res])
+    log(f"parallel: every path held in {time.perf_counter() - t0:.1f} s "
+        f"({PARALLEL_NOTE})")
+
+
+def parallel_rank(init: str, ref_path: str) -> int:
+    """One rank of the parallel phase: every path, its checks, and what it
+    measured, written to ``_build/parallel_rank<r>.json``."""
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    from gear_tpu_torch import kernels
+    from gear_tpu_torch import cache as TC
+    from gear_tpu_torch.api import GearLM
+    from gear_tpu_torch.engine import EngineConfig
+    from gear_tpu_torch.kernels import decode as TK
+    from gear_tpu_torch.models import llama, mistral, mixtral
+    from gear_tpu_torch.parallel import distributed as D
+    from gear_tpu_torch.parallel import sharding as S
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    D.initialize_from_env("gloo", init_method=init)
+    rank = dist.get_rank()
+    tp, seq, ep = S.make_mesh(model=2), D.Mesh({"seq": 2}), D.Mesh(
+        {"expert": 2})
+    refs = torch.load(ref_path)
+    card = nvidia_smi()
+    out = {"lines": [D.describe(tp)], "counts": {}}
+    lines = out["lines"]
+    llama_cut = dataclasses.replace(llama.ModelConfig.llama2_7b(),
+                                    num_layers=EARLIER_DEPTH)
+    n_l = llama_cut.num_layers
+
+    failed = []  # the lockstep checks that failed, raised after every path
+
+    def held(key, got_logits, steps_ms, step_fn, mesh, axis, calls, *,
+             got_toks=None, tokens=None, draws=None):
+        """Lockstep against the unsharded run (``tokens``, what the sharded
+        ``generate`` returned, held against its greedy tokens; ``draws``,
+        the inits the rank drew, against the unsharded run's), then a
+        step's device time, collectives and memory, as lines."""
+        worst, agree, parts = compare_lockstep(torch, refs[key]["logits"],
+                                               got_logits)
+        lines.append(
+            f"{key}: lockstep partings (position, row, got's token's place "
+            f"in ref, ref's in got, ref margin, row max|diff|): "
+            f"{[tuple(p.values()) for p in parts]}")
+        log(lines[-1])
+        if worst >= LOCKSTEP_LIMIT:
+            failed.append(f"{key}: lockstep logits within {LOCKSTEP_LIMIT} "
+                          f"(worst {worst:.3e})")
+        ties = [p for p in parts if near_tie(p)]
+        if len(ties) < len(parts):
+            failed.append(f"{key}: tokens part only where the reference's "
+                          f"margin lies within the row's largest error: "
+                          f"{[p for p in parts if not near_tie(p)]}")
+        # the top-two rule is reported, not held: at random weights a
+        # third token lies within the noise at a few partings (PERF.md)
+        tops = [p for p in parts if top_two(p)]
+        if draws is not None and draws != refs[key]["draws"]:
+            failed.append(f"{key}: the rank drew the unsharded run's "
+                          f"inits ({len(draws)} draws against "
+                          f"{len(refs[key]['draws'])})")
+        gen_note = "" if draws is None else (
+            f"inits drawn as the unsharded run's ({len(draws)} draws); ")
+        if tokens is not None:
+            n = check_generated(key, tokens, refs[key]["toks"], got_toks,
+                                parts)
+            gen_note += (f"sharded generate equal to the unsharded tokens "
+                        f"up to each row's first parting ({n} tokens); ")
+        device_ms, launches, _, heavy = profile_steps(torch, step_fn)
+        coll = collective_ms(torch, mesh, axis, calls)
+        steady = sorted(steps_ms)
+        lines.append(
+            f"{key}: lockstep vs unsharded over {len(got_logits)} positions "
+            f"max|diff|/max|ref| {worst:.3e} (limit {LOCKSTEP_LIMIT}), greedy "
+            f"agreement {agree:.3f}, partings {len(parts)}: within the "
+            f"row's largest error {len(ties)}, at the top two of both runs "
+            f"{len(tops)}; {gen_note}"
+            f"device_ms_per_step={device_ms:.2f} "
+            f"device_launches_per_step={launches:.0f} "
+            f"collective_ms_per_step={coll:.2f} ({len(calls)} all_reduce "
+            f"alone) median_step_ms={steady[len(steady) // 2]:.2f} "
+            f"max_memory_allocated={torch.cuda.max_memory_allocated()} "
+            f"heaviest: {heavy} [{card}; {PARALLEL_NOTE}]")
+        log(lines[-1])
+
+    # 1. tensor parallelism, Llama-2-7B at full width (8 layers), GEARL int4
+    params = llama.init_params(llama_cut, seed=0)
+    prompts = parallel_prompts(llama_cut.vocab_size, TP_PROMPTS)
+    hid, vocab = llama_cut.hidden_size, llama_cut.vocab_size
+    tp_calls = [((4, 1, hid), "sum")] * (2 * n_l) + [((4, vocab), "sum")]
+    for mode in ("fused", "raw"):
+        torch.cuda.reset_peak_memory_stats()
+        lm = GearLM(cfg=llama_cut, params=params,
+                    comp=parallel_comp(llama_cut, "GEARL", 4),
+                    engine_cfg=EngineConfig(max_len=1152, mode=mode),
+                    batch_size=4).shard(tp)
+        kernels.reset_launch_counts()
+        toks = lm.generate(prompts, 80)  # the main path
+        c = kernels.launch_counts()
+        out["counts"][f"tp {mode}"] = c
+        kern = "decode_attention" if mode == "fused" else "flash_decode"
+        other = "flash_decode" if mode == "fused" else "decode_attention"
+        check(c[kern] == n_l * 79 and c[other] == 0,
+              f"tp {mode}: the rank launched its kernel a layer a step")
+        check(c["quant_pack_channels"] == c["quant_pack_tokens"] ==
+              (n_l if mode == "fused" else 0),
+              f"tp {mode}: the packs once a layer in the prefill")
+        eng, times, draws = lm.engine, [], []
+        check(eng.spec.num_kv_heads == 16, "tp: 16 kv heads a rank")
+        got_toks, got, state = lockstep_run(
+            torch, eng, prompts, 79, feed=refs[f"tp {mode}"]["toks"],
+            times=times, draws=draws)
+        if mode == "fused":  # B1 on layer 0's local cache
+            gen = torch.Generator(device="cuda").manual_seed(30 + rank)
+            q = torch.randn((4, 16, 1, 128), generator=gen, device="cuda")
+            lc = state["caches"].layer(0)
+            a = TK.attend_fused(eng.spec, lc, q, pad_start=state["pad"])
+            b = TC.attend(eng.spec, lc, q, pad_start=state["pad"])
+            out["b1_err"] = float((a - b).abs().max())
+            check(torch.allclose(a, b, **TOL_DECODE),
+                  "tp: B1 on the rank's 16 kv heads within tolerance")
+        held(f"tp {mode}", got, times, continue_steps(eng, state, torch),
+             tp, "model", tp_calls, got_toks=got_toks, tokens=toks,
+             draws=draws)
+        del lm, eng, state
+
+    # 2. sequence parallelism: 2 time shards of 4,096 tokens, batch 1
+    torch.cuda.reset_peak_memory_stats()
+    sprompt = parallel_prompts(vocab, [SEQ_PROMPT])
+    eng = parallel_engine(llama_cut, params, "GEARL", 1,
+                          SEQ_MAX_LEN).shard_seq(seq)
+    kernels.reset_launch_counts()
+    toks = eng.generate(sprompt, 80)  # the main path
+    out["counts"]["seq"] = c = kernels.launch_counts()
+    check(c["quant_pack_tokens"] == n_l and c["decode_attention"] == 0,
+          "seq: the whole prefill packs once a layer; the sharded decode "
+          "attends through the plain partials")
+    times, draws = [], []
+    got_toks, got, state = lockstep_run(torch, eng, sprompt, 79,
+                                        feed=refs["seq"]["toks"], times=times,
+                                        draws=draws)
+    check(state["caches"].comp_len == (3968 if rank == 1 else 4096),
+          "seq: the flush landed on the last shard")
+    held("seq", got, times, continue_steps(eng, state, torch), seq, "seq",
+         [((1, 32, 1), "max"), ((1, 32, 1, 129), "sum")] * n_l,
+         got_toks=got_toks, tokens=toks, draws=draws)
+    del eng, state, params
+    torch.cuda.empty_cache()
+
+    # 3. Mistral-7B at TP 2: B1 at 4 kv heads a rank, GQ 4, the window
+    torch.cuda.reset_peak_memory_stats()
+    mcut = dataclasses.replace(mistral.mistral_7b(), num_layers=EARLIER_DEPTH)
+    params = llama.init_params(mcut, seed=0)
+    lm = GearLM(cfg=mcut, params=params, comp=parallel_comp(mcut, "GEAR", 4),
+                engine_cfg=EngineConfig(max_len=MISTRAL_MAX_LEN),
+                batch_size=2).shard(tp)
+    check(lm.engine.spec.num_kv_heads == 4, "tp mistral: 4 kv heads a rank")
+    mprompts = parallel_prompts(mcut.vocab_size, MISTRAL_PROMPTS)
+    kernels.reset_launch_counts()
+    toks = lm.generate(mprompts, MISTRAL_STEPS + 1)  # the main path
+    out["counts"]["tp mistral"] = c = kernels.launch_counts()
+    check(c["decode_attention"] == n_l * MISTRAL_STEPS,
+          "tp mistral: B1 a layer a step")
+    times, draws = [], []
+    got_toks, got, state = lockstep_run(
+        torch, lm.engine, mprompts, MISTRAL_STEPS,
+        feed=refs["tp mistral"]["toks"], times=times, draws=draws)
+    lines.append(f"tp mistral: Mistral-7B GEAR int4 (8 layers, window 4096) "
+                 f"at TP 2, batch 2, prompts {MISTRAL_PROMPTS}, "
+                 f"{MISTRAL_STEPS + 1} tokens: launches {c}")
+    held("tp mistral", got, times, continue_steps(lm.engine, state, torch),
+         tp, "model", [((2, 1, mcut.hidden_size), "sum")] * (2 * n_l)
+         + [((2, mcut.vocab_size), "sum")], got_toks=got_toks, tokens=toks,
+         draws=draws)
+    del lm, params, state
+    torch.cuda.empty_cache()
+
+    # 4. expert parallelism: Mixtral-8x7B, 4 of 8 experts a rank
+    torch.cuda.reset_peak_memory_stats()
+    mcfg = dataclasses.replace(mixtral.MixtralConfig.mixtral_8x7b(),
+                               num_layers=MIXTRAL_EP_DEPTH)
+    params = mixtral.shard_experts(ep, mixtral.init_params(mcfg, seed=0))
+    torch.cuda.empty_cache()
+    lp = llama._layer_slice(params["layers"], 0)
+    x = refs["moe"]["x"].cuda()
+    want = refs["moe"]["out"].cuda()
+    got = mixtral.moe_block_ep(x, lp["router"], lp["wg"], lp["wu"], lp["wd"],
+                               mcfg.experts_per_token, ep)
+    moe_err = float((got.float() - want.float()).abs().max())
+    check(torch.allclose(got.float(), want.float(), rtol=5e-2, atol=5e-3),
+          "ep: moe_block_ep equals moe_block (rtol 5e-2, atol 5e-3)")
+    del lp, got
+    kernels.reset_launch_counts()
+    times = []
+    got_toks, got, ep_step = mixtral_lockstep(
+        torch, mcfg, params, refs["ep"]["toks"], ep_mesh=ep, times=times)
+    out["counts"]["ep"] = c = kernels.launch_counts()
+    check(c["decode_attention"] == MIXTRAL_EP_DEPTH * EP_STEPS
+          and c["quant_pack_tokens"] == MIXTRAL_EP_DEPTH,
+          "ep: B1 a layer a step, the packs once a layer")
+    lines.append(f"ep: moe_block_ep vs moe_block on [2, 64, 4096] bf16, "
+                 f"layer 0: max|diff| {moe_err:.3e} (rtol 5e-2, atol 5e-3); "
+                 f"launches {c}")
+    held("ep", got, times, ep_step, ep, "expert",
+         [((2, 1, mcfg.hidden_size), "sum")] * MIXTRAL_EP_DEPTH)
+    (OUT / f"parallel_rank{rank}.json").write_text(json.dumps(out))
+    dist.barrier()
+    dist.destroy_process_group()
+    check(not failed, "parallel lockstep: " + "; ".join(failed))
+    return 0
+
+
 def main() -> int:
     import torch
 
+    if sys.argv[1:2] == ["--parallel-rank"]:  # a rank of phase_parallel
+        return parallel_rank(*sys.argv[2:4])
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -2267,6 +2882,10 @@ def main() -> int:
             torch, timer, record)),
         "small mixtral": lambda: (phase_small(torch, "GEARL", "mixtral"),
                                   phase_small(torch, "GEAR", "mixtral")),
+        # the parallel slice: tensor, sequence and expert parallelism as
+        # two gloo ranks on the card, held against the unsharded port
+        "parallel": lambda: phase_parallel(torch, record, counts,
+                                           llama_cut),
     }
     for name, run in phases.items():
         t0 = time.perf_counter()
@@ -2340,6 +2959,12 @@ def main() -> int:
         ("flash_decode_mixtral", "flash_decode",
          "gear_tpu_torch/csrc/flash.cu", "gear_tpu/kernels/flash.py:32",
          "mixtral", "raw"),
+        ("decode_attention_tp", "decode_attention",
+         "gear_tpu_torch/csrc/decode.cu", "gear_tpu/kernels/decode.py:132",
+         "tp", "fused"),
+        ("decode_attention_tp_mistral", "decode_attention",
+         "gear_tpu_torch/csrc/decode.cu", "gear_tpu/kernels/decode.py:132",
+         "tp_mistral", "fused"),
     ]
     kern = []
     for row, wrapper, src, rep, path, mode in info:

@@ -7,9 +7,13 @@ continuous batching over dense per-slot caches or a shared page pool
 (``ServingEngine``, ``PagedServingEngine``), with hand-written CUDA kernels
 for the prefill pack, the fused decode attention over the compressed cache
 (dense and paged) and the flash decode over the raw bf16 cache; the H2O and
-StreamingLLM eviction baselines (engine modes ``h2o`` and ``sink``); and the
+StreamingLLM eviction baselines (engine modes ``h2o`` and ``sink``); the
 accuracy evaluation (``eval``: harness, synthetic data and training, the
-CLI). It imports torch and numpy, never JAX and nothing of gear_tpu.
+CLI); tensor, data, sequence and expert parallelism over
+``torch.distributed`` (``parallel``, ``InferenceEngine.shard`` /
+``shard_seq``, ``models.mixtral.moe_block_ep``); and profiling with the
+H100's roofline (``profiling``). It imports torch and numpy, never JAX and
+nothing of gear_tpu.
 """
 from .config import CompressionConfig, LayerCompressionConfig  # noqa: F401
 
@@ -30,6 +34,9 @@ def __getattr__(name):
                                "PagedServingEngine"),
         "PagedSpec": ("gear_tpu_torch.paged", "PagedSpec"),
         "PageAllocator": ("gear_tpu_torch.paged", "PageAllocator"),
+        "Mesh": ("gear_tpu_torch.parallel.distributed", "Mesh"),
+        "make_mesh": ("gear_tpu_torch.parallel.sharding", "make_mesh"),
+        "pod_mesh": ("gear_tpu_torch.parallel.distributed", "pod_mesh"),
     }
     if name in lazy:
         mod, attr = lazy[name]

@@ -10,6 +10,15 @@ PyTorch port of ``gear_tpu/api.py``::
                           prefill_rank=4, num_layers=32),
         max_len=4096, batch_size=8)            # runs on the CUDA device
     out_ids = lm.generate(prompt_ids, max_new_tokens=256)
+
+Sharded over the ranks of a ``torch.distributed`` process group (one card
+each under ``torchrun --nproc-per-node N`` with ``nccl``)::
+
+    from gear_tpu_torch.parallel import distributed, sharding
+
+    distributed.initialize_from_env("nccl")
+    torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+    lm = GearLM.from_pretrained(...).shard(sharding.make_mesh(model=N))
 """
 from __future__ import annotations
 
@@ -70,6 +79,15 @@ class GearLM:
                 self.cfg, self.params, self.comp, self.engine_cfg,
                 batch_size=self.batch_size, device=self.device)
         return self._engine
+
+    def shard(self, mesh) -> "GearLM":
+        """Tensor and data parallelism over ``mesh``'s ``model`` and
+        ``data`` axes (``InferenceEngine.shard``): every rank of the process
+        group builds the same GearLM, shards it, and generates from the same
+        prompts. Afterwards ``params`` holds this rank's slices, so that the
+        whole weights can be freed."""
+        self.params = self.engine.shard(mesh).params
+        return self
 
     def generate(self, input_ids: Sequence[Sequence[int]] | Sequence[int],
                  max_new_tokens: int = 128, *, seed: int = 0,

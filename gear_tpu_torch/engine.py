@@ -1,6 +1,6 @@
 """Inference engine: bucketed prefill + decode loop, PyTorch port of
-``gear_tpu/engine.py`` (every mode; ``shard`` and ``shard_seq`` are not
-ported).
+``gear_tpu/engine.py`` (every mode, and its tensor, data and sequence
+parallelism).
 
 PyTorch runs eagerly, so there is nothing to compile: each decode step runs
 the layer loop directly and updates the caches in place (the JAX engine
@@ -31,6 +31,15 @@ Init sites of the simulated mode (``init(site, shape)``, see
 ``models.llama``): ``("sim_prefill", layer, which)`` for the prompt's
 compression and ``("sim_recompress", step, layer, which)`` for the one after
 decode step ``step``.
+
+Parallelism (``parallel/``): every rank of a ``torch.distributed`` process
+group builds the same engine and calls ``generate`` with the same prompts.
+``shard(mesh)`` splits the heads and the FFN over the mesh's ``model`` axis
+and the batch over its ``data`` axis, in every mode; ``shard_seq(mesh)``
+splits the compressed cache along time over its ``seq`` axis (fused mode).
+Each rank draws every random init and sample for the whole batch and all
+heads from the shared seeded generator and keeps its own, so a sharded run
+takes the unsharded run's draws.
 """
 from __future__ import annotations
 
@@ -43,6 +52,7 @@ from .config import CompressionConfig
 from .core import simulated
 from .device import resolve_device
 from .models import llama
+from .parallel import context, distributed, sharding
 
 MODES = ("fused", "raw", "simulated", "h2o", "sink")
 
@@ -81,6 +91,10 @@ class InferenceEngine:
         self.comp = comp or CompressionConfig(num_layers=model_cfg.num_layers)
         self.ecfg = engine_cfg
         self.batch = batch_size
+        self.mesh = None       # shard(): the (data, model) mesh
+        self.tp = None         # its model-axis collectives
+        self.seq_mesh = None   # shard_seq(): the mesh with the seq axis
+        self.seq_axis = "seq"
         lcomp = self.comp.layer(0)
         if engine_cfg.max_len % lcomp.group_size:
             raise ValueError("max_len must be a multiple of group_size")
@@ -93,19 +107,95 @@ class InferenceEngine:
                 f"sliding_window {win} < group_size {lcomp.group_size}: "
                 "the compressed cache masks the window over the packed "
                 "prefix only; use group_size <= sliding_window")
-        self.spec = model_cfg.cache_spec(batch_size, engine_cfg.max_len, lcomp)
-        if engine_cfg.mode == "h2o":
+        self._set_specs(batch_size)
+
+    def _set_specs(self, batch: int) -> None:
+        """The cache specs of this rank's ``batch`` rows and ``self.cfg``'s
+        kv heads."""
+        cfg, lcomp = self.cfg, self.comp.layer(0)
+        self.spec = cfg.cache_spec(batch, self.ecfg.max_len, lcomp)
+        if self.ecfg.mode == "h2o":
             self.hspec = h2o.H2OSpec(
-                batch=batch_size, num_kv_heads=model_cfg.num_kv_heads,
-                head_dim=model_cfg.head_dim,
+                batch=batch, num_kv_heads=cfg.num_kv_heads,
+                head_dim=cfg.head_dim,
                 budget=lcomp.important_size + lcomp.recent_size,
-                important=lcomp.important_size, dtype=model_cfg.dtype)
-        elif engine_cfg.mode == "sink":
+                important=lcomp.important_size, dtype=cfg.dtype)
+        elif self.ecfg.mode == "sink":
             self.sspec = sink.SinkSpec(
-                batch=batch_size, num_kv_heads=model_cfg.num_kv_heads,
-                head_dim=model_cfg.head_dim, num_sink=lcomp.sink_size,
-                window=lcomp.window_size, rope_theta=model_cfg.rope_theta,
-                dtype=model_cfg.dtype)
+                batch=batch, num_kv_heads=cfg.num_kv_heads,
+                head_dim=cfg.head_dim, num_sink=lcomp.sink_size,
+                window=lcomp.window_size, rope_theta=cfg.rope_theta,
+                dtype=cfg.dtype)
+
+    # -- parallelism ----------------------------------------------------
+
+    def shard(self, mesh) -> "InferenceEngine":
+        """Tensor and data parallelism over ``mesh``'s ``model`` and
+        ``data`` axes (``parallel.sharding``; an absent axis counts as 1).
+        This rank keeps its slices of the params and runs its share of the
+        heads and the FFN (``self.cfg`` becomes the rank's config) for its
+        rows of the batch; the layer loop reduces the partial sums and
+        gathers the logits, and ``generate`` gathers every row's tokens.
+        Raises unless the heads, the FFN, the vocabulary and the batch
+        divide evenly, and, in simulated mode, unless the method's token
+        groups (along the flattened heads) stay within a rank's heads:
+        methods GEARL and KIVI, ``group_size`` dividing the rank's
+        ``num_kv_heads * head_dim``."""
+        nd, nm = mesh.axis_size("data"), mesh.axis_size("model")
+        if self.batch % nd:
+            raise ValueError(f"batch {self.batch} does not split evenly "
+                             f"over data={nd}")
+        cfg = sharding.local_config(self.cfg, mesh)
+        lcomp = self.comp.layer(0)
+        if self.simulating and nm > 1 and (
+                lcomp.compress_method not in ("GEARL", "KIVI_V2", "UNIFORM")
+                or cfg.num_kv_heads * cfg.head_dim % lcomp.group_size):
+            raise ValueError(
+                f"simulated mode's {lcomp.compress_method} (group "
+                f"{lcomp.group_size}) mixes the heads of several ranks: "
+                "tensor parallelism there takes GEARL or KIVI with groups "
+                "inside a rank's heads")
+        self.params = sharding.shard_params(mesh, self.params)
+        self.cfg = cfg
+        self.mesh = mesh
+        self.tp = sharding.TensorParallel(mesh) if nm > 1 else None
+        self._set_specs(self.batch // nd)
+        return self
+
+    def shard_seq(self, mesh, axis: str = "seq") -> "InferenceEngine":
+        """Sequence-parallel decode (context parallelism) over ``mesh``'s
+        ``axis``: every rank runs the whole prefill, then keeps its time
+        shard of the compressed cache (``parallel.context.split_cache``),
+        and each decode step runs ``llama.forward_decode_seqsharded``. Fused
+        mode only. Raises for a model whose sliding window could bind
+        (``sliding_window < max_len``): the sharded attention has no
+        window."""
+        if self.ecfg.mode != "fused":
+            raise ValueError("sequence-parallel decode requires mode='fused'")
+        win = self.cfg.sliding_window
+        if win is not None and win < self.ecfg.max_len:
+            raise ValueError(
+                f"sliding_window {win} < max_len {self.ecfg.max_len}: "
+                "sequence-parallel decode attends the whole cache")
+        context.shard_spec(self.spec, mesh.axis_size(axis))
+        self.seq_mesh, self.seq_axis = mesh, axis
+        return self
+
+    def _rows(self) -> slice:
+        """This rank's rows of the batch."""
+        if self.mesh is None:
+            return slice(0, self.batch)
+        n = self.batch // self.mesh.axis_size("data")
+        i = self.mesh.index("data")
+        return slice(i * n, (i + 1) * n)
+
+    def _inits(self, init, generator):
+        """The init hook the model passes get: under ``shard``, each draw
+        taken from the whole batch's and heads' (``sharding.sharded_inits``);
+        else ``init`` itself (None: the passes draw from ``generator``)."""
+        if self.mesh is None:
+            return init
+        return sharding.sharded_inits(self.mesh, init, generator, self.device)
 
     # -- bucketing ------------------------------------------------------
 
@@ -150,24 +240,28 @@ class InferenceEngine:
 
     def prefill(self, tokens: torch.Tensor, mask: torch.Tensor, *,
                 init=None, generator: torch.Generator | None = None):
-        """Prompt pass -> (logits [B,S,V], stacked caches)."""
+        """Prompt pass of this rank's rows -> (logits [B,S,V], stacked
+        caches)."""
         positions = torch.clamp(torch.cumsum(mask, dim=1) - 1, min=0)
         s = tokens.shape[1]
-        mode = self.ecfg.mode
+        mode, tp = self.ecfg.mode, self.tp
+        init = self._inits(init, generator)
         if mode == "h2o":
             if s > self.hspec.budget:
                 raise ValueError(
                     f"h2o mode: prompt bucket {s} exceeds the H2O "
                     f"budget {self.hspec.budget}")
             return llama.forward_prefill_h2o(self.params, self.cfg, tokens,
-                                             positions, mask, self.hspec)
+                                             positions, mask, self.hspec,
+                                             tp=tp)
         if mode == "sink":
             if s > self.sspec.capacity:
                 raise ValueError(
                     f"sink mode: prompt bucket {s} exceeds the sink "
                     f"capacity {self.sspec.capacity}")
             return llama.forward_prefill_sink(self.params, self.cfg, tokens,
-                                              positions, mask, self.sspec)
+                                              positions, mask, self.sspec,
+                                              tp=tp)
         hook = None
         if self.simulating:
             def hook(layer, k, v):
@@ -178,7 +272,7 @@ class InferenceEngine:
             self.params, self.cfg, tokens, positions, mask, self.spec,
             compress=self.ecfg.mode == "fused", init=init,
             generator=generator, use_lowrank=self.ecfg.use_lowrank,
-            kv_hook=hook)
+            kv_hook=hook, tp=tp)
 
     def recompress(self, caches, end: int, *, step: int = 0, init=None,
                    generator: torch.Generator | None = None):
@@ -187,6 +281,7 @@ class InferenceEngine:
         ``stream_grouping``, else all of them."""
         lcomp = self.comp.layer(0)
         start = end - lcomp.streaming_gap if lcomp.stream_grouping else 0
+        init = self._inits(init, generator)
         for i in range(self.cfg.num_layers):
             k, v = caches.k[i, :, :, start:end], caches.v[i, :, :, start:end]
             kc, vc = self._compress(k, v, ("sim_recompress", step, i),
@@ -197,31 +292,52 @@ class InferenceEngine:
         return caches
 
     def decode_step(self, caches, token, position, pad_start, *, step: int = 0,
-                    init=None, generator: torch.Generator | None = None):
-        """One decode step -> (next token [B] int64, logits [B,V], caches)."""
-        if self.ecfg.mode == "h2o":
+                    init=None, generator: torch.Generator | None = None,
+                    n_tokens: int | None = None):
+        """One decode step of this rank's rows -> (next token [B] int64,
+        logits [B,V], caches). After ``shard_seq``, ``caches`` is this
+        rank's time shard and ``n_tokens`` the tokens the whole cache holds
+        before the step."""
+        mode, tp = self.ecfg.mode, self.tp
+        init = self._inits(init, generator)
+        if self.seq_mesh is not None:
+            if n_tokens is None:
+                raise ValueError("a sequence-sharded decode step needs "
+                                 "n_tokens")
+            logits, caches = llama.forward_decode_seqsharded(
+                self.params, self.cfg, token, position, caches,
+                self.seq_mesh, spec=self.spec, n_tokens=n_tokens,
+                axis=self.seq_axis, pad_start=pad_start, init=init,
+                generator=generator, step=step,
+                use_lowrank=self.ecfg.use_lowrank, tp=tp)
+        elif mode == "h2o":
             logits, caches = llama.forward_decode_h2o(
                 self.params, self.cfg, token, position, caches,
-                hspec=self.hspec)
-            return self._pick(logits, generator), logits, caches
-        if self.ecfg.mode == "sink":
+                hspec=self.hspec, tp=tp)
+        elif mode == "sink":
             logits, caches = llama.forward_decode_sink(
                 self.params, self.cfg, token, position, caches,
-                sspec=self.sspec)
-            return self._pick(logits, generator), logits, caches
-        logits, caches = llama.forward_decode(
-            self.params, self.cfg, token, position, caches, spec=self.spec,
-            compress=self.ecfg.mode == "fused", pad_start=pad_start,
-            init=init, generator=generator, step=step,
-            use_lowrank=self.ecfg.use_lowrank)
+                sspec=self.sspec, tp=tp)
+        else:
+            logits, caches = llama.forward_decode(
+                self.params, self.cfg, token, position, caches,
+                spec=self.spec, compress=mode == "fused",
+                pad_start=pad_start, init=init, generator=generator,
+                step=step, use_lowrank=self.ecfg.use_lowrank, tp=tp)
         return self._pick(logits, generator), logits, caches
 
     def _pick(self, logits: torch.Tensor, generator) -> torch.Tensor:
+        """Greedy, or sampled at ``temperature`` by the inverse of each
+        row's cumulative distribution at a uniform draw; the draws are
+        taken for the whole batch and a rank keeps its rows'."""
         temp = self.ecfg.temperature
-        if temp > 0:
-            probs = torch.softmax(logits / temp, dim=-1)
-            return torch.multinomial(probs, 1, generator=generator)[:, 0]
-        return torch.argmax(logits, dim=-1)
+        if temp <= 0:
+            return torch.argmax(logits, dim=-1)
+        u = torch.rand((self.batch,), generator=generator,
+                       device=logits.device)[self._rows()]
+        cdf = torch.cumsum(torch.softmax(logits.float() / temp, dim=-1), -1)
+        tok = torch.searchsorted(cdf, (u * cdf[:, -1])[:, None], right=True)
+        return tok[:, 0].clamp(max=logits.shape[-1] - 1)
 
     # -- public API -----------------------------------------------------
 
@@ -234,22 +350,33 @@ class InferenceEngine:
         Returns generated token ids per row (without the prompt unless
         ``echo_prompt``); stops early once every row hit eos. ``seed`` seeds
         the generator for sampling and the power-iteration inits; ``init``
-        injects the inits instead (see ``models.llama``).
+        injects the inits instead (see ``models.llama``; asked for at the
+        whole batch's and heads' shape). Sharded, every rank passes the
+        same prompts and gets every row's tokens.
         """
         if len(token_lists) != self.batch:
             raise ValueError(f"engine built for batch {self.batch}, got "
                              f"{len(token_lists)} prompts")
         gen = torch.Generator(device=self.device).manual_seed(seed)
+        # the bucket and the left padding of the whole batch, so that every
+        # row's positions are the unsharded run's
         s = self.bucket_len(max(len(t) for t in token_lists))
         tokens, mask = self.left_pad(token_lists, self.ecfg.pad_token_id, s)
+        rows = self._rows()
+        tokens, mask = tokens[rows], mask[rows]
         logits, caches = self.prefill(tokens, mask, init=init, generator=gen)
 
         prompt_len = mask.sum(dim=1).to(torch.int32)
         pad_start = (s - prompt_len).to(torch.int32)
         cur = self._pick(logits[:, -1], gen)
+        del logits
+        if self.seq_mesh is not None:
+            n = self.seq_mesh.axis_size(self.seq_axis)
+            caches = context.split_cache(self.spec, caches, n)[
+                self.seq_mesh.index(self.seq_axis)]
 
         eos = self.ecfg.eos_token_id
-        done = torch.zeros((self.batch,), dtype=torch.bool, device=self.device)
+        done = torch.zeros(cur.shape, dtype=torch.bool, device=self.device)
         if eos is not None:
             done = done | (cur == eos)
         out = [cur]
@@ -257,7 +384,7 @@ class InferenceEngine:
             position = prompt_len + step_i
             nxt, _, caches = self.decode_step(
                 caches, cur, position, pad_start, step=step_i, init=init,
-                generator=gen)
+                generator=gen, n_tokens=s + step_i)
             if eos is not None:
                 nxt = torch.where(done, torch.full_like(nxt, eos), nxt)
                 done = done | (nxt == eos)
@@ -268,10 +395,13 @@ class InferenceEngine:
                 self.recompress(caches, s + step_i + 1, step=step_i,
                                 init=init, generator=gen)
             if eos is not None and (step_i + 1) % self.ecfg.sync_every == 0:
-                if bool(done.all()):
+                if self._all_done(done):
                     break
 
-        gen_tok = torch.stack(out, dim=1).cpu().tolist()  # [B, T]
+        gen_tok = torch.stack(out, dim=1)  # [B, T]
+        if self.mesh is not None:
+            gen_tok = distributed.gather(gen_tok, self.mesh, "data", 0)
+        gen_tok = gen_tok.cpu().tolist()
         results = []
         for i in range(self.batch):
             row = gen_tok[i]
@@ -279,3 +409,11 @@ class InferenceEngine:
                 row = row[: row.index(eos) + 1]
             results.append((list(token_lists[i]) if echo_prompt else []) + row)
         return results
+
+    def _all_done(self, done: torch.Tensor) -> bool:
+        """Whether every row of the whole batch hit eos: one sum over the
+        data ranks, so that all of them stop at the same step."""
+        left = (~done).sum().reshape(1)
+        if self.mesh is not None:
+            left = distributed.all_reduce(left, self.mesh, "data")
+        return int(left) == 0

@@ -1,6 +1,7 @@
 """Llama-family model with compressed-KV decode, PyTorch port of
 ``gear_tpu/models/llama.py`` (the fused, raw, simulated, H2O and sink
-paths, and the prefill that training differentiates).
+paths, the sequence-sharded decode, and the prefill that training
+differentiates).
 
   * Parameters are a plain dict: ``embed``, ``final_norm``, ``lm_head`` and
     ``layers``, a dict of per-layer tensors stacked on a leading axis, in
@@ -13,6 +14,9 @@ paths, and the prefill that training differentiates).
     for tensors on the card, the plain ``cache.attend`` / :func:`raw_attend`
     on the CPU.
   * HF conventions: rotate-half RoPE, GQA head grouping, RMSNorm, SwiGLU.
+  * Tensor parallelism: with ``tp`` (``parallel.sharding.TensorParallel``)
+    a pass runs one rank's share of the heads and the FFN, and the layer
+    loop reduces the partial sums and gathers the logits.
 
 The power-iteration inits can be injected with ``init(site, shape)``;
 ``site`` is ``("prefill", layer, which)`` in :func:`forward_prefill` and
@@ -303,25 +307,38 @@ def _qkv(cfg: ModelConfig, lp: dict, h, cos, sin):
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
-def _finish_layer(cfg: ModelConfig, lp: dict, h, attn, ffn=mlp_ffn):
+def _finish_layer(cfg: ModelConfig, lp: dict, h, attn, ffn=mlp_ffn,
+                  tp=None):
+    """The attention output projection and the feed-forward block, each
+    added to the residual stream. Under tensor parallelism (``tp``, a
+    ``parallel.sharding.TensorParallel``) ``wo`` and ``wd`` hold this rank's
+    rows, so both outputs are partial sums, reduced before the add (added
+    first, the residual would count once per rank)."""
+    reduce = _no_reduce if tp is None else tp.reduce
     b, s = h.shape[:2]
-    h = h + attn.transpose(1, 2).reshape(b, s, -1) @ lp["wo"]
+    h = h + reduce(attn.transpose(1, 2).reshape(b, s, -1) @ lp["wo"])
     x2 = rmsnorm(h, lp["mlp_norm"], cfg.rms_eps)
-    return h + ffn(lp, x2)
+    return h + reduce(ffn(lp, x2))
 
 
-def _layers(params: dict, cfg: ModelConfig, h, cos, sin, mix, ffn=mlp_ffn):
+def _no_reduce(x):
+    return x
+
+
+def _layers(params: dict, cfg: ModelConfig, h, cos, sin, mix, ffn=mlp_ffn,
+            tp=None):
     """The layer loop every forward pass shares, then the final norm and the
     logits [..., V] f32. ``mix(i, q, k, v) -> attn`` is the pass's own cache
     step and attention for layer ``i`` (q and k as :func:`_qkv` gives
     them); ``ffn(lp, x) -> out`` the layer's feed-forward block (Mixtral
-    gives its expert mixture)."""
+    gives its expert mixture). With ``tp`` the params and ``cfg`` are one
+    rank's share of the model (``parallel.sharding``)."""
     for i in range(cfg.num_layers):
         lp = _layer_slice(params["layers"], i)
         q, k, v = _qkv(cfg, lp, h, cos, sin)
-        h = _finish_layer(cfg, lp, h, mix(i, q, k, v), ffn)
+        h = _finish_layer(cfg, lp, h, mix(i, q, k, v), ffn, tp)
     h = rmsnorm(h, params["final_norm"], cfg.rms_eps)
-    return logits_from_hidden(params, cfg, h)
+    return logits_from_hidden(params, cfg, h, tp)
 
 
 # ---------------------------------------------------------------------------
@@ -334,10 +351,13 @@ def forward_prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                     spec: CacheSpec | None, *, compress: bool = True,
                     init: InitFn | None = None,
                     generator: torch.Generator | None = None,
-                    use_lowrank: bool = True, kv_hook=None, ffn=mlp_ffn):
+                    use_lowrank: bool = True, kv_hook=None, ffn=mlp_ffn,
+                    tp=None):
     """Run the prompt, return (logits [B,S,V] f32, caches). No gradient is
     taken (:func:`forward_prefill_grad` is the pass that training
-    differentiates). ``ffn(lp, x)`` is each layer's feed-forward block.
+    differentiates). ``ffn(lp, x)`` is each layer's feed-forward block;
+    ``tp`` runs one rank's share under tensor parallelism (see
+    :func:`_layers`), as in every forward pass below but the paged one.
 
     With ``spec`` and ``compress``, each layer's KV is compressed into a
     two-tier LayerCache (prefill block at prefill_rank + residual tail), and
@@ -351,7 +371,7 @@ def forward_prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     """
     return _prefill(params, cfg, tokens, positions, attn_mask, spec,
                     compress=compress, init=init, generator=generator,
-                    use_lowrank=use_lowrank, kv_hook=kv_hook, ffn=ffn)
+                    use_lowrank=use_lowrank, kv_hook=kv_hook, ffn=ffn, tp=tp)
 
 
 def forward_prefill_grad(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
@@ -365,7 +385,7 @@ def forward_prefill_grad(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 
 def _prefill(params, cfg, tokens, positions, attn_mask, spec, *,
              compress=True, init=None, generator=None, use_lowrank=True,
-             kv_hook=None, ffn=mlp_ffn):
+             kv_hook=None, ffn=mlp_ffn, tp=None):
     h = params["embed"][tokens].to(cfg.dtype)
     cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
     caches = []
@@ -385,7 +405,7 @@ def _prefill(params, cfg, tokens, positions, attn_mask, spec, *,
             caches.append(raw_prefill(spec, k, v))
         return causal_attention(q, k, v, attn_mask, cfg.sliding_window)
 
-    logits = _layers(params, cfg, h, cos, sin, mix, ffn)
+    logits = _layers(params, cfg, h, cos, sin, mix, ffn, tp)
     if spec is None:
         return logits, (torch.stack([c[0] for c in caches]),
                         torch.stack([c[1] for c in caches]))
@@ -401,7 +421,7 @@ def forward_decode(params: dict, cfg: ModelConfig, token: torch.Tensor,
                    pad_start: torch.Tensor | None = None,
                    init: InitFn | None = None,
                    generator: torch.Generator | None = None, step: int = 0,
-                   use_lowrank: bool = True, ffn=mlp_ffn):
+                   use_lowrank: bool = True, ffn=mlp_ffn, tp=None):
     """One decode step: append KV (in place), attend over the whole cache.
 
     token/position [B]; ``caches`` is the stacked cache from
@@ -428,7 +448,47 @@ def forward_decode(params: dict, cfg: ModelConfig, token: torch.Tensor,
         return fused.attend_fused(spec, lc, q, pad_start=pad_start,
                                   window=cfg.sliding_window)
 
-    logits = _layers(params, cfg, h, cos, sin, mix, ffn)
+    logits = _layers(params, cfg, h, cos, sin, mix, ffn, tp)
+    caches.set_lengths(lc)
+    return logits[:, 0], caches
+
+
+@torch.no_grad()
+def forward_decode_seqsharded(params: dict, cfg: ModelConfig,
+                              token: torch.Tensor, position: torch.Tensor,
+                              caches, mesh, *, spec: CacheSpec, n_tokens: int,
+                              axis: str = "seq",
+                              pad_start: torch.Tensor | None = None,
+                              init: InitFn | None = None,
+                              generator: torch.Generator | None = None,
+                              step: int = 0, use_lowrank: bool = True,
+                              tp=None):
+    """One decode step with the compressed KV SPLIT ALONG TIME over the
+    ``axis`` of ``mesh`` (context parallelism): ``caches`` is this rank's
+    time shard of the stacked cache (``parallel.context.split_cache``),
+    updated in place. The params and activations are whole on every rank;
+    the append lands on the last shard, and each layer's partial attention
+    states merge with two small ``all_reduce``s. ``spec`` is the whole
+    cache's, ``n_tokens`` the tokens it held before this step (the same on
+    every rank). Inits as :func:`forward_decode`, the flush's ``comp_len``
+    the whole cache's. -> (logits [B, V] f32, caches)."""
+    from ..parallel import context
+
+    h = params["embed"][token].to(cfg.dtype)[:, None]
+    cos, sin = rope_cos_sin(position[:, None], cfg.head_dim, cfg.rope_theta)
+    lc = None
+
+    def mix(i, q, k, v):
+        nonlocal lc
+        lc = caches.layer(i)
+        p0 = None if init is None else (
+            lambda which, shape, c: init(("decode", step, i, which, c), shape))
+        return context.seq_sharded_append_attend(
+            spec, lc, k, v, q, mesh, n_tokens=n_tokens, axis=axis, p0=p0,
+            generator=generator, use_lowrank=use_lowrank,
+            pad_start=pad_start)
+
+    logits = _layers(params, cfg, h, cos, sin, mix, tp=tp)
     caches.set_lengths(lc)
     return logits[:, 0], caches
 
@@ -474,9 +534,14 @@ def forward_decode_paged(params: dict, cfg: ModelConfig, token: torch.Tensor,
     return logits[:, 0], pools, seqs
 
 
-def logits_from_hidden(params: dict, cfg: ModelConfig, h: torch.Tensor):
-    w = params["embed"].T if cfg.tie_word_embeddings else params["lm_head"]
-    return h.float() @ w.float()
+def logits_from_hidden(params: dict, cfg: ModelConfig, h: torch.Tensor,
+                       tp=None):
+    """Logits [..., V] f32; under tensor parallelism ``lm_head`` holds this
+    rank's columns of the vocabulary, and ``tp`` gathers them."""
+    if cfg.tie_word_embeddings:
+        return h.float() @ params["embed"].T.float()
+    logits = h.float() @ params["lm_head"].float()
+    return logits if tp is None else tp.vocab(logits)
 
 
 # ---------------------------------------------------------------------------
@@ -504,7 +569,7 @@ def _prefill_received_attention(q, k, attn_mask):
 
 @torch.no_grad()
 def forward_prefill_h2o(params: dict, cfg: ModelConfig, tokens, positions,
-                        attn_mask, hspec):
+                        attn_mask, hspec, tp=None):
     """Prompt pass building stacked H2O caches (prompt length <= budget;
     eviction starts at decode). Left padding: pad slots carry position -1,
     which ``h2o.attend`` masks and ``h2o._evict`` drops first."""
@@ -527,13 +592,13 @@ def forward_prefill_h2o(params: dict, cfg: ModelConfig, tokens, positions,
         caches.append(lc)
         return causal_attention(q, k, v, attn_mask, cfg.sliding_window)
 
-    logits = _layers(params, cfg, h, cos, sin, mix)
+    logits = _layers(params, cfg, h, cos, sin, mix, tp=tp)
     return logits, h2o.stack_layers(caches)
 
 
 @torch.no_grad()
 def forward_decode_h2o(params: dict, cfg: ModelConfig, token, position,
-                       caches, *, hspec):
+                       caches, *, hspec, tp=None):
     """One decode step over H2O caches: evict if full, append, attend
     (accumulating the scores); the caches change in place. -> (logits
     [B, V] f32, caches)."""
@@ -548,7 +613,7 @@ def forward_decode_h2o(params: dict, cfg: ModelConfig, token, position,
         lc = h2o.append(hspec, caches.layer(i), k, v, position)
         return h2o.attend(hspec, lc, q)
 
-    logits = _layers(params, cfg, h, cos, sin, mix)
+    logits = _layers(params, cfg, h, cos, sin, mix, tp=tp)
     caches.set_lengths(lc)
     return logits[:, 0], caches
 
@@ -559,7 +624,7 @@ def forward_decode_h2o(params: dict, cfg: ModelConfig, token, position,
 
 @torch.no_grad()
 def forward_prefill_sink(params: dict, cfg: ModelConfig, tokens, positions,
-                         attn_mask, sspec):
+                         attn_mask, sspec, tp=None):
     """Prompt pass building stacked sink caches (prompt length <= capacity).
     Keys are cached UNROTATED (``sink.attend`` rotates them at their
     cache-relative positions). No left padding is taken out: as in the
@@ -580,13 +645,13 @@ def forward_prefill_sink(params: dict, cfg: ModelConfig, tokens, positions,
         q, k = apply_rope(q, cos, sin), apply_rope(k_unrot, cos, sin)
         return causal_attention(q, k, v, attn_mask, cfg.sliding_window)
 
-    logits = _layers(params, cfg, h, None, None, mix)
+    logits = _layers(params, cfg, h, None, None, mix, tp=tp)
     return logits, sink.stack_layers(caches)
 
 
 @torch.no_grad()
 def forward_decode_sink(params: dict, cfg: ModelConfig, token, position,
-                        caches, *, sspec):
+                        caches, *, sspec, tp=None):
     """One decode step over sink caches; RoPE happens inside
     ``sink.attend`` at cache-relative positions, so q and k stay unrotated
     here and ``position`` is not used (it keeps the decoders' signature).
@@ -601,7 +666,7 @@ def forward_decode_sink(params: dict, cfg: ModelConfig, token, position,
         lc = sink.append(sspec, caches.layer(i), k, v)
         return sink.attend(sspec, lc, q)
 
-    logits = _layers(params, cfg, h, None, None, mix)
+    logits = _layers(params, cfg, h, None, None, mix, tp=tp)
     caches.set_lengths(lc)
     return logits[:, 0], caches
 

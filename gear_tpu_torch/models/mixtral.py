@@ -13,8 +13,9 @@ where every expert runs and the renormalised top-k gates (zero for the
 others) weight the results. Experts are read without copying: the rows of
 the batch are folded into one ``[1, rows, E] @ [NE, E, F]`` product, and
 long prompts run the mixture over chunks of :data:`MOE_ROWS` rows, so the
-``[NE, rows, F]`` intermediates stay bounded. ``moe_block_ep`` (experts
-sharded over devices) is not ported.
+``[NE, rows, F]`` intermediates stay bounded. :func:`moe_block_ep` runs
+the experts sharded over the ranks of an ``expert`` mesh axis
+(``parallel.distributed``).
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import resolve_device
+from ..parallel import distributed, sharding
 from . import llama
 from .llama import ModelConfig
 
@@ -104,35 +106,84 @@ def init_params(cfg: MixtralConfig, *, seed: int = 0, device=None) -> dict:
     }
 
 
-def moe_block(x: torch.Tensor, router: torch.Tensor, wg: torch.Tensor,
-              wu: torch.Tensor, wd: torch.Tensor, top_k: int) -> torch.Tensor:
-    """Sparse-MoE FFN as a dense weighted mixture.
-
-    x [B,S,E]; router [E,NE]; wg / wu [NE,E,F]; wd [NE,F,E]. Routing as the
-    reference (HF Mixtral): float32 logits, softmax over the experts, every
-    expert whose probability reaches the k-th largest kept (so ties keep
-    more than k), the kept renormalised. The expert products, ``silu`` and
-    ``h_g * h_u`` run in the model dtype, the weighted sum over the experts
-    in float32, cast back at the end.
-    """
-    b, s, e = x.shape
+def _route(x: torch.Tensor, router: torch.Tensor, top_k: int):
+    """The gates [B*S, NE] f32 of x [B,S,E]: float32 logits, softmax over the
+    experts, every expert whose probability reaches the k-th largest kept
+    (so ties keep more than k), the kept renormalised."""
     probs = torch.softmax(x.float() @ router.float(), dim=-1)   # [B,S,NE]
     thresh = probs.topk(top_k, dim=-1).values[..., -1:]
     gate = torch.where(probs >= thresh, probs, torch.zeros_like(probs))
-    gate = (gate / gate.sum(dim=-1, keepdim=True)).reshape(b * s, -1).T
+    return (gate / gate.sum(dim=-1, keepdim=True)).reshape(-1, gate.shape[-1])
+
+
+def _mixture(x: torch.Tensor, gate: torch.Tensor, wg: torch.Tensor,
+             wu: torch.Tensor, wd: torch.Tensor) -> torch.Tensor:
+    """Sum over the experts of ``wg``/``wu``/``wd`` (the leading axis) of
+    their outputs for x [B,S,E], weighted by ``gate`` [B*S, n] ->
+    [B*S, E] f32, in chunks of :data:`MOE_ROWS` rows."""
+    b, s, e = x.shape
+    gate = gate.T
     xr = x.reshape(1, b * s, e)
     out = torch.empty((b * s, e), dtype=torch.float32, device=x.device)
     rows = MOE_ROWS
     for r in range(0, b * s, rows):
         xc = xr[:, r:r + rows]
-        h = F.silu(xc @ wg) * (xc @ wu)                         # [NE,n,F]
-        y = (h @ wd).float()                                    # [NE,n,E]
+        h = F.silu(xc @ wg) * (xc @ wu)                         # [n,rows,F]
+        y = (h @ wd).float()                                    # [n,rows,E]
         out[r:r + rows] = (y * gate[:, r:r + rows, None]).sum(dim=0)
-    return out.to(x.dtype).reshape(b, s, e)
+    return out
 
 
-def _moe_ffn(cfg: MixtralConfig):
+def moe_block(x: torch.Tensor, router: torch.Tensor, wg: torch.Tensor,
+              wu: torch.Tensor, wd: torch.Tensor, top_k: int) -> torch.Tensor:
+    """Sparse-MoE FFN as a dense weighted mixture.
+
+    x [B,S,E]; router [E,NE]; wg / wu [NE,E,F]; wd [NE,F,E]. Routing as the
+    reference (HF Mixtral; :func:`_route`). The expert products, ``silu``
+    and ``h_g * h_u`` run in the model dtype, the weighted sum over the
+    experts in float32, cast back at the end.
+    """
+    gate = _route(x, router, top_k)
+    return _mixture(x, gate, wg, wu, wd).to(x.dtype).reshape(x.shape)
+
+
+def moe_block_ep(x: torch.Tensor, router: torch.Tensor, wg: torch.Tensor,
+                 wu: torch.Tensor, wd: torch.Tensor, top_k: int, mesh,
+                 axis: str = "expert") -> torch.Tensor:
+    """EXPERT-PARALLEL :func:`moe_block` on one rank of ``mesh``'s ``axis``
+    of n ranks: every rank routes identically (the router and x are the
+    same on all), runs only its NE / n experts, and one float32
+    ``all_reduce`` sums the weighted partial outputs.
+
+    ``wg`` / ``wu`` / ``wd`` hold only this rank's experts, as
+    :func:`shard_experts` leaves them.
+    """
+    ne, n = router.shape[-1], mesh.axis_size(axis)
+    if ne % n:
+        raise ValueError(f"{ne} experts do not split evenly over {axis}={n}")
+    nel = ne // n
+    lo = mesh.index(axis) * nel
+    gate = _route(x, router, top_k)[:, lo:lo + nel]
+    part = distributed.all_reduce(_mixture(x, gate, wg, wu, wd), mesh, axis)
+    return part.to(x.dtype).reshape(x.shape)
+
+
+def shard_experts(mesh, params: dict, axis: str = "expert") -> dict:
+    """``params`` with each layer stack of expert weights cut to this rank's
+    experts of ``axis`` (contiguous copies, so the whole stacks can be
+    freed); everything else shared with ``params``."""
+    layers = dict(params["layers"])
+    for name in ("wg", "wu", "wd"):
+        layers[name] = sharding.local_slice(layers[name], (None, axis), mesh)
+    return {**params, "layers": layers}
+
+
+def _moe_ffn(cfg: MixtralConfig, ep_mesh=None, ep_axis: str = "expert"):
     def ffn(lp: dict, x: torch.Tensor) -> torch.Tensor:
+        if ep_mesh is not None:
+            return moe_block_ep(x, lp["router"], lp["wg"], lp["wu"],
+                                lp["wd"], cfg.experts_per_token, ep_mesh,
+                                ep_axis)
         return moe_block(x, lp["router"], lp["wg"], lp["wu"], lp["wd"],
                          cfg.experts_per_token)
     return ffn
@@ -141,23 +192,28 @@ def _moe_ffn(cfg: MixtralConfig):
 def forward_prefill(params: dict, cfg: MixtralConfig, tokens: torch.Tensor,
                     positions: torch.Tensor, attn_mask: torch.Tensor,
                     spec, *, compress: bool = True, init=None,
-                    generator: torch.Generator | None = None):
+                    generator: torch.Generator | None = None,
+                    ep_mesh=None, ep_axis: str = "expert"):
     """The prompt pass -> (logits [B,S,V] f32, stacked caches): compressed
     with ``spec`` and ``compress``, raw with ``compress=False``, the stacked
-    (k, v) without ``spec``. Inits as :func:`models.llama.forward_prefill`."""
+    (k, v) without ``spec``. Inits as :func:`models.llama.forward_prefill`.
+    With ``ep_mesh`` the experts run expert-parallel over its ``ep_axis``
+    (:func:`moe_block_ep`)."""
     return llama.forward_prefill(
         params, cfg, tokens, positions, attn_mask, spec, compress=compress,
-        init=init, generator=generator, ffn=_moe_ffn(cfg))
+        init=init, generator=generator, ffn=_moe_ffn(cfg, ep_mesh, ep_axis))
 
 
 def forward_decode(params: dict, cfg: MixtralConfig, token: torch.Tensor,
                    position: torch.Tensor, caches, *, spec,
                    compress: bool = True,
                    pad_start: torch.Tensor | None = None, init=None,
-                   generator: torch.Generator | None = None, step: int = 0):
+                   generator: torch.Generator | None = None, step: int = 0,
+                   ep_mesh=None, ep_axis: str = "expert"):
     """One decode step over the stacked caches (updated in place) ->
-    (logits [B, V] f32, caches), as :func:`models.llama.forward_decode`."""
+    (logits [B, V] f32, caches), as :func:`models.llama.forward_decode`;
+    ``ep_mesh`` as :func:`forward_prefill`."""
     return llama.forward_decode(
         params, cfg, token, position, caches, spec=spec, compress=compress,
         pad_start=pad_start, init=init, generator=generator, step=step,
-        ffn=_moe_ffn(cfg))
+        ffn=_moe_ffn(cfg, ep_mesh, ep_axis))

@@ -843,3 +843,49 @@ def test_small_mixtral_on_the_card_matches_the_cpu(cuda, compress):
         runs[dev.type] = torch.stack(out)
     err = (runs["cuda"] - runs["cpu"]).abs().max() / runs["cpu"].abs().max()
     assert float(err) < chip_smoke.LOCKSTEP_LIMIT
+
+
+@pytest.mark.parametrize("name,kw,hkv,hq,b,t,n_prefill,pad,window", [
+    ("llama tp", dict(), 16, 16, 4, 1152, 1024, [24, 0, 47, 13], None),
+    ("mistral tp", dict(outliers_per_block=162), 4, 16, 2, 4480, 4352,
+     [0, 130], 4096),
+])
+def test_decode_kernel_at_tp_rank_shapes(cuda, name, kw, hkv, hq, b, t,
+                                         n_prefill, pad, window):
+    """B1 at the shapes one of two tensor-parallel ranks gives it: the
+    Llama-2-7B path's 16 of 32 kv heads, and Mistral-7B's 4 of 8 kv heads
+    with 16 query heads (GQ 4), 2% outliers and the window; a cache from the
+    port's prefill and 70 appends across a flush."""
+    spec = TC.CacheSpec(batch=b, num_kv_heads=hkv, head_dim=128, max_len=t,
+                        bits=4, group=64, rank=2, prefill_rank=4,
+                        lowrank_loop=3, **kw)
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    shape = (b, hkv, n_prefill, 128)
+    k = torch.randn(shape, generator=gen, device=cuda).bfloat16()
+    v = torch.randn(shape, generator=gen, device=cuda).bfloat16()
+    cache = TC.prefill(spec, k, v, generator=gen)
+    for _ in range(70):
+        kn = torch.randn((b, hkv, 1, 128), generator=gen, device=cuda)
+        TC.append(spec, cache, kn.bfloat16(), (kn * 0.5).bfloat16(),
+                  generator=gen)
+    assert cache.comp_len > cache.prefill_len
+    q = torch.randn((b, hq, 1, 128), generator=gen, device=cuda)
+    pad_t = torch.tensor(pad, dtype=torch.int32, device=cuda)
+    before = TK.decode_attention.launches
+    got = TK.attend_fused(spec, cache, q, pad_start=pad_t, window=window)
+    assert TK.decode_attention.launches == before + 1
+    want = TC.attend(spec, cache, q, pad_start=pad_t, window=window)
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-4)
+
+
+def test_tensor_parallel_step_on_the_card(cuda, tmp_path):
+    """Two gloo ranks on cuda:0: a fused prefill and decode step, tensor
+    parallel, against the unsharded one on the card (bf16 weights: within
+    the lockstep limit), B1 and the packs launched at 2 kv heads a rank."""
+    from test_torch_parallel_procs import _spawn
+
+    for res in _spawn(tmp_path, "cuda_tp", 2):
+        assert res["hkv"] == 2
+        assert res["counts"]["decode_attention"] == 2
+        assert res["counts"]["quant_pack_tokens"] == 2
+        assert res["err"] < chip_smoke.LOCKSTEP_LIMIT

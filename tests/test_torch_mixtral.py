@@ -193,8 +193,10 @@ def test_prefill_and_decode_logits_match_reference(tiny, method, compress):
         assert tcaches.length == int(jcaches.length[0]) == 34
 
 
-def _pre_hook_layers(params, cfg, h, cos, sin, mix, ffn=None):
-    """The Llama layer loop as it was before the feed-forward hook."""
+def _pre_hook_layers(params, cfg, h, cos, sin, mix, ffn=None, tp=None):
+    """The Llama layer loop as it was before the feed-forward hook (taking
+    ``_layers``' arguments; no tensor parallelism here)."""
+    assert tp is None
     for i in range(cfg.num_layers):
         lp = tllama._layer_slice(params["layers"], i)
         q, k, v = tllama._qkv(cfg, lp, h, cos, sin)

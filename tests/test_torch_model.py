@@ -6,6 +6,7 @@ handed the JAX side's power-iteration inits (jax.random draws along the
 same key chain), so prefill/decode logits agree within 1e-4 and greedy
 tokens are identical.
 """
+import dataclasses
 import functools
 import json
 import os
@@ -197,7 +198,10 @@ def test_port_imports_no_jax():
             "gear_tpu_torch.eval.harness, gear_tpu_torch.eval.synth, "
             "gear_tpu_torch.eval.run, gear_tpu_torch.tools.acc_run, "
             "gear_tpu_torch.models.mixtral, gear_tpu_torch.runtime.kvstore, "
-            "gear_tpu_torch.runtime.faults; "
+            "gear_tpu_torch.runtime.faults, gear_tpu_torch.parallel, "
+            "gear_tpu_torch.parallel.distributed, "
+            "gear_tpu_torch.parallel.sharding, "
+            "gear_tpu_torch.parallel.context, gear_tpu_torch.profiling; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'gear_tpu')]; "
             "assert not bad, bad; print('ok')")
@@ -221,6 +225,36 @@ def test_entry_points_refuse_silent_cpu(tiny, monkeypatch):
     with pytest.raises(ValueError, match="unknown engine mode"):
         TEngine(tcfg, tparams, comp, TEngineConfig(max_len=64, mode="h3o"),
                 batch_size=2, device="cpu")
+
+
+def test_shard_seq_entry_point_refusals(tiny):
+    """shard_seq takes fused mode, shards of whole groups, and no sliding
+    window that could bind (the sharded attention has none; gear_tpu's
+    ignores the window there)."""
+    _, tcfg, _, tparams = tiny
+    comp = TComp(**_comp(tcfg))
+
+    class Seq:  # a mesh's seq axis, without the processes
+        def __init__(self, n):
+            self.n = n
+
+        def axis_size(self, axis):
+            return self.n
+
+    def eng(mode="fused", cfg=tcfg):
+        return TEngine(cfg, tparams, comp, TEngineConfig(max_len=64,
+                                                         mode=mode),
+                       batch_size=2, device="cpu")
+    assert eng().shard_seq(Seq(4)).seq_axis == "seq"
+    with pytest.raises(ValueError, match="requires mode='fused'"):
+        eng("raw").shard_seq(Seq(2))
+    with pytest.raises(ValueError, match="whole groups"):
+        eng().shard_seq(Seq(3))
+    windowed = dataclasses.replace(tcfg, sliding_window=32)
+    with pytest.raises(ValueError, match="sliding_window 32 < max_len 64"):
+        eng(cfg=windowed).shard_seq(Seq(2))
+    wide = dataclasses.replace(tcfg, sliding_window=64)
+    assert eng(cfg=wide).shard_seq(Seq(2)).seq_mesh is not None
 
 
 def _write_safetensors(path, tensors: dict):
