@@ -11,8 +11,9 @@ StreamingLLM eviction baselines (engine modes ``h2o`` and ``sink``); the
 accuracy evaluation (``eval``: harness, synthetic data and training, the
 CLI); tensor, data, sequence and expert parallelism over
 ``torch.distributed`` (``parallel``, ``InferenceEngine.shard`` /
-``shard_seq``, ``models.mixtral.moe_block_ep``); and profiling with the
-H100's roofline (``profiling``). It imports torch and numpy, never JAX and
+``shard_seq``, ``models.mixtral.moe_block_ep``); and profiling: spans
+inside the decode step, recorded while ``torch.profiler`` records, and
+the H100's peaks (``profiling``). It imports torch and numpy, never JAX and
 nothing of gear_tpu.
 """
 from .config import CompressionConfig, LayerCompressionConfig  # noqa: F401

@@ -39,6 +39,7 @@ from typing import Callable
 
 import torch
 
+from . import profiling
 from .core import lowrank, outliers, quant
 
 P0Fn = Callable[[str, tuple], torch.Tensor]
@@ -700,47 +701,48 @@ def _flush(spec: CacheSpec, cache: LayerCache, p0: P0Fn | None,
            use_lowrank: bool = True) -> None:
     """Quantize the full residual tier into the packed prefix, in place
     (plain path on either device, as in the reference)."""
-    g = spec.group
-    c0 = cache.comp_len
-    if c0 + g > spec.max_len:
-        raise ValueError(
-            f"compressed cache full: flushing {g} tokens at comp_len {c0} "
-            f"exceeds max_len {spec.max_len}")
-    kb = cache.k_resid.float()
-    vb = cache.v_resid.float()
-    k_pack, k_scale, k_mn, ko_i, ko_v, ko_b = _compress_k_block(spec, kb)
-    v_pack, v_scale, v_mn, vo_i, vo_v, vo_b = _compress_v_block(spec, vb)
-    blk = c0 // g
-    cache.k_codes[:, :, :, c0:c0 + g] = k_pack
-    cache.k_scale[:, :, blk] = k_scale[:, :, 0]
-    cache.k_mn[:, :, blk] = k_mn[:, :, 0]
-    cache.v_codes[:, :, :, c0:c0 + g] = v_pack
-    cache.v_scale[:, :, :, c0:c0 + g] = v_scale
-    cache.v_mn[:, :, :, c0:c0 + g] = v_mn
-    if spec.outliers_per_block:
-        cache.k_out_idx[:, :, blk] = ko_i[:, :, 0]
-        cache.k_out_val[:, :, blk] = ko_v[:, :, 0]
-        cache.v_out_idx[:, :, blk] = vo_i[:, :, 0]
-        cache.v_out_val[:, :, blk] = vo_v[:, :, 0]
-        cache.k_out_bnd[:, :, blk] = ko_b[:, :, 0]
-        cache.v_out_bnd[:, :, blk] = vo_b[:, :, 0]
-    if use_lowrank and max(spec.rank, spec.rank_v_eff) > 0:
-        k_hat = _dequant_k_block(spec, k_pack, k_scale, k_mn, ko_i, ko_v)
-        v_hat = _dequant_v_block(spec, v_pack, v_scale, v_mn, vo_i, vo_v)
-        kp, kqt, kps, kqs = _error_bases(spec, kb, k_hat, spec.rank, "k", p0,
-                                         generator)
-        vp, vqt, vps, vqs = _error_bases(spec, vb, v_hat, spec.rank_v_eff,
-                                         "v", p0, generator)
-        cache.kpt[:, :, blk] = kp.transpose(-1, -2)
-        cache.kqt[:, :, :, c0:c0 + g] = kqt
-        cache.vpt[:, :, blk] = vp.transpose(-1, -2)
-        cache.vqt[:, :, :, c0:c0 + g] = vqt
-        cache.kpt_scale[:, :, blk] = kps
-        cache.kqt_scale[:, :, :, blk] = kqs
-        cache.vpt_scale[:, :, blk] = vps
-        cache.vqt_scale[:, :, :, blk] = vqs
-    cache.comp_len = c0 + g
-    cache.resid_len = 0
+    with profiling.span("cache.flush", comp_len=cache.comp_len):
+        g = spec.group
+        c0 = cache.comp_len
+        if c0 + g > spec.max_len:
+            raise ValueError(
+                f"compressed cache full: flushing {g} tokens at comp_len {c0} "
+                f"exceeds max_len {spec.max_len}")
+        kb = cache.k_resid.float()
+        vb = cache.v_resid.float()
+        k_pack, k_scale, k_mn, ko_i, ko_v, ko_b = _compress_k_block(spec, kb)
+        v_pack, v_scale, v_mn, vo_i, vo_v, vo_b = _compress_v_block(spec, vb)
+        blk = c0 // g
+        cache.k_codes[:, :, :, c0:c0 + g] = k_pack
+        cache.k_scale[:, :, blk] = k_scale[:, :, 0]
+        cache.k_mn[:, :, blk] = k_mn[:, :, 0]
+        cache.v_codes[:, :, :, c0:c0 + g] = v_pack
+        cache.v_scale[:, :, :, c0:c0 + g] = v_scale
+        cache.v_mn[:, :, :, c0:c0 + g] = v_mn
+        if spec.outliers_per_block:
+            cache.k_out_idx[:, :, blk] = ko_i[:, :, 0]
+            cache.k_out_val[:, :, blk] = ko_v[:, :, 0]
+            cache.v_out_idx[:, :, blk] = vo_i[:, :, 0]
+            cache.v_out_val[:, :, blk] = vo_v[:, :, 0]
+            cache.k_out_bnd[:, :, blk] = ko_b[:, :, 0]
+            cache.v_out_bnd[:, :, blk] = vo_b[:, :, 0]
+        if use_lowrank and max(spec.rank, spec.rank_v_eff) > 0:
+            k_hat = _dequant_k_block(spec, k_pack, k_scale, k_mn, ko_i, ko_v)
+            v_hat = _dequant_v_block(spec, v_pack, v_scale, v_mn, vo_i, vo_v)
+            kp, kqt, kps, kqs = _error_bases(spec, kb, k_hat, spec.rank, "k",
+                                             p0, generator)
+            vp, vqt, vps, vqs = _error_bases(spec, vb, v_hat, spec.rank_v_eff,
+                                             "v", p0, generator)
+            cache.kpt[:, :, blk] = kp.transpose(-1, -2)
+            cache.kqt[:, :, :, c0:c0 + g] = kqt
+            cache.vpt[:, :, blk] = vp.transpose(-1, -2)
+            cache.vqt[:, :, :, c0:c0 + g] = vqt
+            cache.kpt_scale[:, :, blk] = kps
+            cache.kqt_scale[:, :, :, blk] = kqs
+            cache.vpt_scale[:, :, blk] = vps
+            cache.vqt_scale[:, :, :, blk] = vqs
+        cache.comp_len = c0 + g
+        cache.resid_len = 0
 
 
 def append(spec: CacheSpec, cache: LayerCache, k_new: torch.Tensor,
@@ -755,11 +757,12 @@ def append(spec: CacheSpec, cache: LayerCache, k_new: torch.Tensor,
     JAX cache silently clamps there).
     """
     i = cache.resid_len
-    cache.k_resid[:, :, i] = k_new[:, :, 0]
-    cache.v_resid[:, :, i] = v_new[:, :, 0]
-    cache.resid_len = i + 1
-    if cache.resid_len == spec.group:
-        _flush(spec, cache, p0, generator, use_lowrank)
+    with profiling.span("cache.append", resid_len=i):
+        cache.k_resid[:, :, i] = k_new[:, :, 0]
+        cache.v_resid[:, :, i] = v_new[:, :, 0]
+        cache.resid_len = i + 1
+        if cache.resid_len == spec.group:
+            _flush(spec, cache, p0, generator, use_lowrank)
     return cache
 
 

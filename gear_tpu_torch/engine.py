@@ -47,7 +47,7 @@ from dataclasses import dataclass
 
 import torch
 
-from . import h2o, sink
+from . import h2o, profiling, sink
 from .config import CompressionConfig
 from .core import simulated
 from .device import resolve_device
@@ -242,37 +242,39 @@ class InferenceEngine:
                 init=None, generator: torch.Generator | None = None):
         """Prompt pass of this rank's rows -> (logits [B,S,V], stacked
         caches)."""
-        positions = torch.clamp(torch.cumsum(mask, dim=1) - 1, min=0)
-        s = tokens.shape[1]
-        mode, tp = self.ecfg.mode, self.tp
-        init = self._inits(init, generator)
-        if mode == "h2o":
-            if s > self.hspec.budget:
-                raise ValueError(
-                    f"h2o mode: prompt bucket {s} exceeds the H2O "
-                    f"budget {self.hspec.budget}")
-            return llama.forward_prefill_h2o(self.params, self.cfg, tokens,
-                                             positions, mask, self.hspec,
-                                             tp=tp)
-        if mode == "sink":
-            if s > self.sspec.capacity:
-                raise ValueError(
-                    f"sink mode: prompt bucket {s} exceeds the sink "
-                    f"capacity {self.sspec.capacity}")
-            return llama.forward_prefill_sink(self.params, self.cfg, tokens,
-                                              positions, mask, self.sspec,
-                                              tp=tp)
-        hook = None
-        if self.simulating:
-            def hook(layer, k, v):
-                return self._compress(k, v, ("sim_prefill", layer),
-                                      prefill=True, init=init,
-                                      generator=generator)
-        return llama.forward_prefill(
-            self.params, self.cfg, tokens, positions, mask, self.spec,
-            compress=self.ecfg.mode == "fused", init=init,
-            generator=generator, use_lowrank=self.ecfg.use_lowrank,
-            kv_hook=hook, tp=tp)
+        with profiling.span("engine.prefill", batch=tokens.shape[0],
+                            bucket=tokens.shape[1]):
+            positions = torch.clamp(torch.cumsum(mask, dim=1) - 1, min=0)
+            s = tokens.shape[1]
+            mode, tp = self.ecfg.mode, self.tp
+            init = self._inits(init, generator)
+            if mode == "h2o":
+                if s > self.hspec.budget:
+                    raise ValueError(
+                        f"h2o mode: prompt bucket {s} exceeds the H2O "
+                        f"budget {self.hspec.budget}")
+                return llama.forward_prefill_h2o(self.params, self.cfg, tokens,
+                                                 positions, mask, self.hspec,
+                                                 tp=tp)
+            if mode == "sink":
+                if s > self.sspec.capacity:
+                    raise ValueError(
+                        f"sink mode: prompt bucket {s} exceeds the sink "
+                        f"capacity {self.sspec.capacity}")
+                return llama.forward_prefill_sink(self.params, self.cfg,
+                                                  tokens, positions, mask,
+                                                  self.sspec, tp=tp)
+            hook = None
+            if self.simulating:
+                def hook(layer, k, v):
+                    return self._compress(k, v, ("sim_prefill", layer),
+                                          prefill=True, init=init,
+                                          generator=generator)
+            return llama.forward_prefill(
+                self.params, self.cfg, tokens, positions, mask, self.spec,
+                compress=self.ecfg.mode == "fused", init=init,
+                generator=generator, use_lowrank=self.ecfg.use_lowrank,
+                kv_hook=hook, tp=tp)
 
     def recompress(self, caches, end: int, *, step: int = 0, init=None,
                    generator: torch.Generator | None = None):
@@ -298,33 +300,35 @@ class InferenceEngine:
         logits [B,V], caches). After ``shard_seq``, ``caches`` is this
         rank's time shard and ``n_tokens`` the tokens the whole cache holds
         before the step."""
-        mode, tp = self.ecfg.mode, self.tp
-        init = self._inits(init, generator)
-        if self.seq_mesh is not None:
-            if n_tokens is None:
-                raise ValueError("a sequence-sharded decode step needs "
-                                 "n_tokens")
-            logits, caches = llama.forward_decode_seqsharded(
-                self.params, self.cfg, token, position, caches,
-                self.seq_mesh, spec=self.spec, n_tokens=n_tokens,
-                axis=self.seq_axis, pad_start=pad_start, init=init,
-                generator=generator, step=step,
-                use_lowrank=self.ecfg.use_lowrank, tp=tp)
-        elif mode == "h2o":
-            logits, caches = llama.forward_decode_h2o(
-                self.params, self.cfg, token, position, caches,
-                hspec=self.hspec, tp=tp)
-        elif mode == "sink":
-            logits, caches = llama.forward_decode_sink(
-                self.params, self.cfg, token, position, caches,
-                sspec=self.sspec, tp=tp)
-        else:
-            logits, caches = llama.forward_decode(
-                self.params, self.cfg, token, position, caches,
-                spec=self.spec, compress=mode == "fused",
-                pad_start=pad_start, init=init, generator=generator,
-                step=step, use_lowrank=self.ecfg.use_lowrank, tp=tp)
-        return self._pick(logits, generator), logits, caches
+        with profiling.span("engine.decode_step", step=step,
+                            batch=token.shape[0]):
+            mode, tp = self.ecfg.mode, self.tp
+            init = self._inits(init, generator)
+            if self.seq_mesh is not None:
+                if n_tokens is None:
+                    raise ValueError("a sequence-sharded decode step needs "
+                                     "n_tokens")
+                logits, caches = llama.forward_decode_seqsharded(
+                    self.params, self.cfg, token, position, caches,
+                    self.seq_mesh, spec=self.spec, n_tokens=n_tokens,
+                    axis=self.seq_axis, pad_start=pad_start, init=init,
+                    generator=generator, step=step,
+                    use_lowrank=self.ecfg.use_lowrank, tp=tp)
+            elif mode == "h2o":
+                logits, caches = llama.forward_decode_h2o(
+                    self.params, self.cfg, token, position, caches,
+                    hspec=self.hspec, tp=tp)
+            elif mode == "sink":
+                logits, caches = llama.forward_decode_sink(
+                    self.params, self.cfg, token, position, caches,
+                    sspec=self.sspec, tp=tp)
+            else:
+                logits, caches = llama.forward_decode(
+                    self.params, self.cfg, token, position, caches,
+                    spec=self.spec, compress=mode == "fused",
+                    pad_start=pad_start, init=init, generator=generator,
+                    step=step, use_lowrank=self.ecfg.use_lowrank, tp=tp)
+            return self._pick(logits, generator), logits, caches
 
     def _pick(self, logits: torch.Tensor, generator) -> torch.Tensor:
         """Greedy, or sampled at ``temperature`` by the inverse of each

@@ -14,7 +14,10 @@ def _wrappers() -> dict:
 
 
 def launch_counts() -> dict[str, int]:
-    """Launches of every kernel wrapper since the last reset."""
+    """Calls of each hand-written kernel's launching wrapper since the last
+    reset: those kernels only. The launches a decode step makes on the
+    card, library kernels, copies and fills included, are its device
+    records in a ``torch.profiler`` trace."""
     return {name: fn.launches for name, fn in _wrappers().items()}
 
 

@@ -36,6 +36,7 @@ from __future__ import annotations
 import torch
 
 from .. import cache as kvcache
+from .. import profiling
 from . import _build
 
 TILE = 128          # tokens per thread block (csrc/attn_common.cuh kTile)
@@ -363,42 +364,44 @@ def attend_fused(spec: kvcache.CacheSpec, cache: kvcache.LayerCache,
     ``window >= group``, so that the residual tier (at most ``group`` of the
     newest tokens) always lies inside the window.
     """
-    if window is not None and window < spec.group:
-        raise ValueError(
-            f"window {window} < group {spec.group}: the window is masked "
-            "through pad_start over the compressed prefix only; the residual "
-            "tier (<= group tokens) must fit inside it")
-    if q.device.type == "cpu":
-        return kvcache.attend(spec, cache, q, sm_scale=sm_scale,
-                              pad_start=pad_start, window=window)
-    b, hq, qn, d = q.shape
-    hkv = spec.num_kv_heads
-    qf, gq_n = pad_query(q, hkv, sm_scale)
-    pad = fold_window(pad_start, window, cache.total_len, b, q.device)
+    with profiling.span("decode.attend_fused"):
+        if window is not None and window < spec.group:
+            raise ValueError(
+                f"window {window} < group {spec.group}: the window is "
+                "masked through pad_start over the compressed prefix only; "
+                "the residual tier (<= group tokens) must fit inside it")
+        if q.device.type == "cpu":
+            return kvcache.attend(spec, cache, q, sm_scale=sm_scale,
+                                  pad_start=pad_start, window=window)
+        b, hq, qn, d = q.shape
+        hkv = spec.num_kv_heads
+        qf, gq_n = pad_query(q, hkv, sm_scale)
+        pad = fold_window(pad_start, window, cache.total_len, b, q.device)
 
-    def flat(x):
-        return x.reshape(b * hkv, *x.shape[2:])
+        def flat(x):
+            return x.reshape(b * hkv, *x.shape[2:])
 
-    extra = {}
-    if spec.base_bits == 8:
-        extra.update({f: flat(getattr(cache, f)) for f in
-                      ("kpt_scale", "kqt_scale", "vqt_scale", "vpt_scale")})
-    if spec.outliers_per_block:
-        extra.update({f: flat(getattr(cache, f)) for f in
-                      ("k_out_idx", "k_out_val", "v_out_idx", "v_out_val",
-                       "k_out_bnd", "v_out_bnd")})
-        extra["out_pad"] = spec.ko_store - spec.outliers_per_block
-    out = decode_attention(
-        qf, flat(cache.k_codes), flat(cache.k_scale),
-        flat(cache.k_mn), flat(cache.kpt), flat(cache.kqt),
-        flat(cache.v_codes), flat(cache.v_scale), flat(cache.v_mn),
-        flat(cache.vqt), flat(cache.vpt), flat(cache.k_resid),
-        flat(cache.v_resid), pad, **extra,
-        comp_len=cache.comp_len, resid_len=cache.resid_len,
-        prefill_len=cache.prefill_len, hkv=hkv,
-        bits=spec.bits, group=spec.group, v_group=spec.v_group)
-    out = out.reshape(b, hkv, -1, d)[:, :, :gq_n]
-    return out.reshape(b, hq, qn, d).to(q.dtype)
+        extra = {}
+        if spec.base_bits == 8:
+            extra.update({f: flat(getattr(cache, f)) for f in
+                          ("kpt_scale", "kqt_scale", "vqt_scale",
+                           "vpt_scale")})
+        if spec.outliers_per_block:
+            extra.update({f: flat(getattr(cache, f)) for f in
+                          ("k_out_idx", "k_out_val", "v_out_idx", "v_out_val",
+                           "k_out_bnd", "v_out_bnd")})
+            extra["out_pad"] = spec.ko_store - spec.outliers_per_block
+        out = decode_attention(
+            qf, flat(cache.k_codes), flat(cache.k_scale),
+            flat(cache.k_mn), flat(cache.kpt), flat(cache.kqt),
+            flat(cache.v_codes), flat(cache.v_scale), flat(cache.v_mn),
+            flat(cache.vqt), flat(cache.vpt), flat(cache.k_resid),
+            flat(cache.v_resid), pad, **extra,
+            comp_len=cache.comp_len, resid_len=cache.resid_len,
+            prefill_len=cache.prefill_len, hkv=hkv,
+            bits=spec.bits, group=spec.group, v_group=spec.v_group)
+        out = out.reshape(b, hkv, -1, d)[:, :, :gq_n]
+        return out.reshape(b, hq, qn, d).to(q.dtype)
 
 
 def decode_attention_paged(lens, pad_start, block_table, q, kpt, k_codes,

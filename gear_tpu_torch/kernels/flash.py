@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import profiling
 from . import _build
 from . import decode as _dec
 
@@ -98,19 +99,20 @@ def raw_attend_flash(spec, c, q: torch.Tensor, *,
     raw mode masks the window in ``raw_attend``; taking it here keeps Mistral
     in raw mode on the kernel.
     """
-    if q.device.type == "cpu":
-        from ..models import llama
+    with profiling.span("flash.raw_attend_flash"):
+        if q.device.type == "cpu":
+            from ..models import llama
 
-        return llama.raw_attend(spec, c, q, sm_scale=sm_scale,
-                                pad_start=pad_start, window=window)
-    b, hq, qn, d = q.shape
-    hkv = spec.num_kv_heads
-    qf, gq_n = _dec.pad_query(q, hkv, sm_scale)
-    pad = _dec.fold_window(pad_start, window, c.length, b, q.device)
-    pad_bh = pad.repeat_interleave(hkv) if hkv > 1 else pad
-    bhn = b * hkv
-    out = flash_decode(c.length, pad_bh, qf,
-                       c.k.reshape(bhn, *c.k.shape[2:]),
-                       c.v.reshape(bhn, *c.v.shape[2:]))
-    out = out.reshape(b, hkv, -1, d)[:, :, :gq_n]
-    return out.reshape(b, hq, qn, d).to(q.dtype)
+            return llama.raw_attend(spec, c, q, sm_scale=sm_scale,
+                                    pad_start=pad_start, window=window)
+        b, hq, qn, d = q.shape
+        hkv = spec.num_kv_heads
+        qf, gq_n = _dec.pad_query(q, hkv, sm_scale)
+        pad = _dec.fold_window(pad_start, window, c.length, b, q.device)
+        pad_bh = pad.repeat_interleave(hkv) if hkv > 1 else pad
+        bhn = b * hkv
+        out = flash_decode(c.length, pad_bh, qf,
+                           c.k.reshape(bhn, *c.k.shape[2:]),
+                           c.v.reshape(bhn, *c.v.shape[2:]))
+        out = out.reshape(b, hkv, -1, d)[:, :, :gq_n]
+        return out.reshape(b, hq, qn, d).to(q.dtype)

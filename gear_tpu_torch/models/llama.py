@@ -37,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import cache as kvcache
+from .. import profiling
 from ..cache import CacheSpec
 from ..device import resolve_device
 from ..kernels import decode as fused
@@ -334,9 +335,10 @@ def _layers(params: dict, cfg: ModelConfig, h, cos, sin, mix, ffn=mlp_ffn,
     gives its expert mixture). With ``tp`` the params and ``cfg`` are one
     rank's share of the model (``parallel.sharding``)."""
     for i in range(cfg.num_layers):
-        lp = _layer_slice(params["layers"], i)
-        q, k, v = _qkv(cfg, lp, h, cos, sin)
-        h = _finish_layer(cfg, lp, h, mix(i, q, k, v), ffn, tp)
+        with profiling.span("llama.layer", layer=i):
+            lp = _layer_slice(params["layers"], i)
+            q, k, v = _qkv(cfg, lp, h, cos, sin)
+            h = _finish_layer(cfg, lp, h, mix(i, q, k, v), ffn, tp)
     h = rmsnorm(h, params["final_norm"], cfg.rms_eps)
     return logits_from_hidden(params, cfg, h, tp)
 
@@ -705,13 +707,14 @@ def raw_prefill(spec: CacheSpec, k: torch.Tensor, v: torch.Tensor):
 
 def raw_append(spec: CacheSpec, c: RawLayerCache, k_new, v_new):
     """Append [B,H,n,D] in place."""
-    n = k_new.shape[2]
-    if c.length + n > spec.max_len:
-        raise ValueError(f"raw cache full at max_len {spec.max_len}")
-    c.k[:, :, c.length:c.length + n] = k_new
-    c.v[:, :, c.length:c.length + n] = v_new
-    c.length += n
-    return c
+    with profiling.span("llama.raw_append"):
+        n = k_new.shape[2]
+        if c.length + n > spec.max_len:
+            raise ValueError(f"raw cache full at max_len {spec.max_len}")
+        c.k[:, :, c.length:c.length + n] = k_new
+        c.v[:, :, c.length:c.length + n] = v_new
+        c.length += n
+        return c
 
 
 def raw_stack(caches: list[RawLayerCache]) -> RawLayerCache:

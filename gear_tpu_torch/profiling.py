@@ -1,28 +1,188 @@
-"""Profiling and roofline accounting; the counterpart of
-``gear_tpu/profiling.py``.
+"""Profiling: the program's spans, ``torch.profiler`` traces, a timer, and
+the H100's peaks; the counterpart of ``gear_tpu/profiling.py``.
 
-``torch.profiler`` trace capture (a Chrome trace, with the card's kernels
-when there is one), a timer that reads CUDA events for work on the card and
-the host clock for work on the CPU, and an analytic roofline for the fused
-decode attention and for the raw bf16 baseline, so that a measured time can
-be judged against the card's speed of light.
+Spans. :func:`span` marks a stretch of the program's host work (a decode
+step, a layer, a cache append or flush, an attention call) with a name and
+a few attributes. Spans are recorded only while ``torch.profiler`` records,
+so a program that is not being profiled pays one flag check a span. They
+are kept in this process's memory (:func:`spans`), stamped with
+``time.time_ns()``: the clock the profiler stamps its own events with, so
+a span and the operations and kernels launched inside it line up. They are
+not profiler events: an annotation (``record_function``, an NVTX range)
+would also be drawn on the device's timeline, over the kernels launched
+inside it, and counted there as device work. :func:`trace` writes them into
+its Chrome trace on a track of their own.
+
+The span names, each at the function it times: ``engine.decode_step``
+(attributes ``step``, ``batch``; the root of a step's spans),
+``engine.prefill`` (``batch``, ``bucket``), ``llama.layer`` (``layer``),
+``cache.append`` (``resid_len``), ``cache.flush`` (``comp_len``),
+``llama.raw_append``, ``decode.attend_fused``, ``flash.raw_attend_flash``.
+
+Beside them: a timer that reads CUDA events for work on the card and the
+host clock for work on the CPU, and the H100's published peaks.
 """
 from __future__ import annotations
 
 import contextlib
+import json
 import os
+import threading
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
+
+# -- spans ------------------------------------------------------------------
+
+@dataclass(slots=True)
+class Span:
+    """One recorded span. Times are ``time.time_ns()``; ``parent`` and
+    ``root`` index :func:`spans` (``parent`` is None for a root, whose
+    ``root`` is its own index); ``thread`` is the OS thread id, as the
+    profiler's events give it; ``error`` names the exception that left the
+    span, if one did."""
+    name: str
+    t0: int
+    t1: int | None
+    parent: int | None
+    root: int
+    thread: int
+    attrs: dict = field(default_factory=dict)
+    error: str | None = None
+
+
+class _Thread(threading.local):
+    """A thread's stack of open spans, and its OS id, read once: asking
+    for it is a system call, which some hosts make slow."""
+
+    def __init__(self):
+        self.stack: list[tuple[int, int]] = []
+        self.tid = threading.get_native_id()
+
+
+_records: list[Span] = []
+_lock = threading.Lock()
+_thread = _Thread()
+_OFF = contextlib.nullcontext()
+
+
+class _Open:
+    __slots__ = ("name", "attrs", "rec")
+
+    def __init__(self, name: str, attrs: dict):
+        self.name, self.attrs = name, attrs
+
+    def __enter__(self):
+        stack = _thread.stack
+        parent, root = stack[-1] if stack else (None, None)
+        with _lock:
+            i = len(_records)
+            self.rec = Span(self.name, 0, None, parent,
+                            i if root is None else root, _thread.tid,
+                            self.attrs)
+            _records.append(self.rec)
+        stack.append((i, self.rec.root))
+        self.rec.t0 = time.time_ns()
+
+    def __exit__(self, exc_type, exc, tb):
+        self.rec.t1 = time.time_ns()
+        if exc_type is not None:
+            self.rec.error = exc_type.__name__
+        _thread.stack.pop()
+        return False
+
+
+def span(name: str, **attrs):
+    """A context that records the block as a span named ``name`` while
+    ``torch.profiler`` records; otherwise one shared no-op context."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _Open(name, attrs)
+
+
+def spans() -> list[Span]:
+    """The spans recorded since the last :func:`clear_spans`, in the order
+    they opened (a span still open has ``t1`` None)."""
+    with _lock:
+        return list(_records)
+
+
+def clear_spans() -> None:
+    with _lock:
+        _records.clear()
+
+
+def self_ns(records: list[Span]) -> list[int | None]:
+    """Each span's self time: its duration less the union of its children's
+    intervals (None for a span still open)."""
+    kids: list[list] = [[] for _ in records]
+    for r in records:
+        if r.parent is not None and r.t1 is not None:
+            kids[r.parent].append((r.t0, r.t1))
+    out = []
+    for r, ks in zip(records, kids):
+        if r.t1 is None:
+            out.append(None)
+            continue
+        covered, end = 0, r.t0
+        for a, b in sorted(ks):
+            a, b = max(a, end), min(b, r.t1)
+            if b > a:
+                covered += b - a
+                end = b
+        out.append(r.t1 - r.t0 - covered)
+    return out
+
+
+def roots(name: str, key: str, records: list[Span]) -> dict:
+    """For each value of attribute ``key``, the index of the last root span
+    named ``name`` that carries it."""
+    return {r.attrs.get(key): i for i, r in enumerate(records)
+            if r.parent is None and r.name == name}
+
+
+def _write_spans(path: str, records: list[Span]) -> None:
+    """Add ``records`` to the Chrome trace at ``path`` (as
+    ``torch.profiler`` exports it) as complete events on a process track
+    named ``gear_tpu_torch``, listed above the profiler's own."""
+    with open(path) as f:
+        doc = json.load(f)
+    # the profiler writes ``ts`` in microseconds since baseTimeNanoseconds
+    # of the same clock as time.time_ns() (since the epoch where absent)
+    base = int(doc.get("baseTimeNanoseconds", 0))
+    events = doc["traceEvents"]
+    pid = 1 + max((e["pid"] for e in events
+                   if isinstance(e.get("pid"), int)), default=0)
+    events.append({"ph": "M", "name": "process_name", "pid": pid, "tid": 0,
+                   "args": {"name": "gear_tpu_torch"}})
+    events.append({"ph": "M", "name": "process_sort_index", "pid": pid,
+                   "tid": 0, "args": {"sort_index": -1}})
+    for r in records:
+        if r.t1 is None:
+            continue
+        args = dict(r.attrs)
+        if r.error is not None:
+            args["error"] = r.error
+        events.append({"ph": "X", "cat": "gear_tpu_torch", "name": r.name,
+                       "pid": pid, "tid": r.thread,
+                       "ts": (r.t0 - base) / 1e3,
+                       "dur": (r.t1 - r.t0) / 1e3, "args": args})
+    with open(path, "w") as f:
+        json.dump(doc, f)
+
+
+# -- traces and timing -------------------------------------------------------
 
 @contextlib.contextmanager
 def trace(log_dir: str):
     """``torch.profiler`` over the block (host, and the card's kernels when
     CUDA is available); on exit the Chrome trace is written to
-    ``log_dir/trace.json`` (chrome://tracing or Perfetto). Yields the
+    ``log_dir/trace.json`` (chrome://tracing or Perfetto) with the block's
+    spans on a track of their own. Clears the spans on entry. Yields the
     profiler, whose ``key_averages()`` sum the kernels by name."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -30,9 +190,12 @@ def trace(log_dir: str):
     if torch.cuda.is_available():
         acts.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
+    clear_spans()
     with profile(activities=acts) as prof:
         yield prof
-    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+    path = os.path.join(log_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    _write_spans(path, spans())
 
 
 def _first_tensor(out):
@@ -97,63 +260,3 @@ class ChipSpec:
 # (without sparsity) and 67 TFLOP/s float32, all at the 700 W power limit.
 H100_SXM = ChipSpec("h100_sxm", hbm_gbps=3350.0, bf16_tflops=989.0,
                     fp32_tflops=67.0)
-
-
-@dataclass
-class Roofline:
-    bytes_accessed: int
-    flops: int
-    chip: ChipSpec
-
-    @property
-    def mem_time_s(self) -> float:
-        return self.bytes_accessed / (self.chip.hbm_gbps * 1e9)
-
-    @property
-    def compute_time_s(self) -> float:
-        return self.flops / (self.chip.bf16_tflops * 1e12)
-
-    @property
-    def sol_time_s(self) -> float:
-        return max(self.mem_time_s, self.compute_time_s)
-
-    def efficiency(self, measured_s: float) -> float:
-        """Fraction of speed-of-light achieved."""
-        return self.sol_time_s / measured_s
-
-
-def decode_attention_roofline(spec, batch: int, q_heads: int,
-                              chip: ChipSpec = H100_SXM) -> Roofline:
-    """Roofline for one fused decode-attention step over a full cache.
-
-    Bytes = the compressed cache (read once: the kernel's one-pass
-    contract) + q/out; FLOPs = QK^T + PV + low-rank + dequant-fold ops.
-    """
-    t, d = spec.max_len, spec.head_dim
-    h = spec.num_kv_heads
-    b = batch
-    bytes_accessed = spec.bytes_compressed() + 2 * b * q_heads * d * 4
-    flops = 2 * b * q_heads * t * d * 2          # QK^T + PV
-    flops += 2 * b * q_heads * t * spec.r_store * 2  # low-rank corrections
-    flops += b * h * t * d * 2 * 2               # scale folds
-    return Roofline(bytes_accessed, int(flops), chip)
-
-
-def raw_decode_attention_roofline(spec, batch: int, q_heads: int,
-                                  chip: ChipSpec = H100_SXM) -> Roofline:
-    """Roofline for one uncompressed bf16 decode-attention step (the
-    baseline fused mode is measured against): bytes = the bf16 K+V read
-    once + q/out; FLOPs = QK^T + PV."""
-    t, d = spec.max_len, spec.head_dim
-    b = batch
-    bytes_accessed = spec.bytes_fp16_baseline() + 2 * b * q_heads * d * 4
-    flops = 2 * b * q_heads * t * d * 2
-    return Roofline(bytes_accessed, int(flops), chip)
-
-
-def report(label: str, measured_s: float, roof: Roofline) -> str:
-    eff = roof.efficiency(measured_s)
-    return (f"{label}: {measured_s*1e6:.1f} us "
-            f"(SoL {roof.sol_time_s*1e6:.1f} us, {eff*100:.0f}% of "
-            f"{roof.chip.name} speed-of-light; "
-            f"{roof.bytes_accessed/measured_s/1e9:.0f} GB/s effective)")

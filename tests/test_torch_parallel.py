@@ -1,9 +1,8 @@
 """The port's parallel rules and profiling in one process on the CPU, against
 ``gear_tpu``: the sharding specs of every weight and cache leaf, this rank's
 slices, ``split_cache`` leaf by leaf, the merge of the shards' partial
-attention states, and the roofline's byte and FLOP counts. The paths that
-need several processes are in ``test_torch_parallel_procs.py``."""
-import dataclasses
+attention states, and the profiling helpers. The paths that need several
+processes are in ``test_torch_parallel_procs.py``."""
 import functools
 
 import jax
@@ -13,8 +12,6 @@ import pytest
 import torch
 
 from gear_tpu import cache as C
-from gear_tpu import profiling as JP
-from gear_tpu.config import CompressionConfig as JComp
 from gear_tpu.models import llama as jllama
 from gear_tpu.parallel import context as jctx
 from gear_tpu.parallel import sharding as jsh
@@ -256,31 +253,6 @@ def test_shard_spec_refuses_partial_groups():
     assert tctx.shard_spec(tspec, 8).max_len == 32
 
 
-@pytest.mark.parametrize("kw,model", [
-    (dict(compress_method="GEARL"), "llama2_7b"),
-    (dict(compress_method="GEAR"), "llama2_7b"),
-    (dict(compress_method="GEAR", quantize_bit=2), "llama2_7b"),
-    (dict(compress_method="GEARL"), "llama3_8b"),      # GQA: 32 q / 8 kv
-], ids=["gearl int4", "gear outliers", "gear int2", "gqa"])
-@pytest.mark.parametrize("base_bits", [16, 8], ids=["bf16 bases", "int8"])
-def test_roofline_counts_match_reference(kw, model, base_bits):
-    jcfg = getattr(jllama.ModelConfig, model)()
-    tcfg = getattr(tllama.ModelConfig, model)()
-    jspec = dataclasses.replace(
-        jcfg.cache_spec(4, 8192, JComp(num_layers=32, **kw).layer(0)),
-        base_bits=base_bits)
-    tspec = dataclasses.replace(
-        tcfg.cache_spec(4, 8192, TComp(num_layers=32, **kw).layer(0)),
-        base_bits=base_bits)
-    for fn in ("decode_attention_roofline", "raw_decode_attention_roofline"):
-        want = getattr(JP, fn)(jspec, 4, jcfg.num_heads)
-        got = getattr(TP, fn)(tspec, 4, tcfg.num_heads)
-        assert (got.bytes_accessed, got.flops) == (want.bytes_accessed,
-                                                   want.flops), fn
-        assert got.chip == TP.H100_SXM
-        assert got.mem_time_s == got.bytes_accessed / 3.35e12
-
-
 def test_timeit_and_trace_on_the_cpu(tmp_path):
     calls = []
 
@@ -294,9 +266,6 @@ def test_timeit_and_trace_on_the_cpu(tmp_path):
         torch.ones(64) @ torch.ones(64)
     assert (tmp_path / "trace.json").stat().st_size > 0
     assert prof.key_averages()
-    roof = TP.Roofline(3_350_000, 0, TP.H100_SXM)
-    assert "1.0 us" in TP.report("x", 2e-6, roof) and \
-        "50% of h100_sxm" in TP.report("x", 2e-6, roof)
 
 
 def test_h100_bound_takes_the_slower_of_bytes_and_operations():
