@@ -16,7 +16,9 @@ What differs from the JAX package:
   * Lengths are host integers. Every row shares ``comp_len`` / ``resid_len``
     / ``prefill_len`` (scalars in the JAX cache), so keeping them on the
     host spares each decode step a device-to-host sync; the flush is a
-    Python ``if`` instead of ``lax.cond``.
+    Python ``if`` instead of ``lax.cond``. A step that a CUDA graph replays
+    reads a copy of them in device memory instead (:class:`StepLens`,
+    :func:`append_at`); the host integers stay the lengths.
   * Randomness. The power-iteration init comes from an optional provider
     ``p0(which, shape) -> Tensor`` (``which`` is ``"k"`` or ``"v"``), else
     uniform [0, 1) draws from a ``torch.Generator``.
@@ -34,6 +36,7 @@ sliding-window mask in :func:`attend`, and the partial-state attention
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Callable
 
@@ -235,6 +238,34 @@ class LayerCache:
     def set_lengths(self, other: "LayerCache") -> None:
         for f in LENGTH_FIELDS:
             setattr(self, f, getattr(other, f))
+
+
+@dataclass(frozen=True)
+class StepLens:
+    """One decode step's lengths in device memory, for a step whose launches
+    hold no host length, so that a CUDA graph replays them with each step's
+    (``engine.InferenceEngine`` writes them before each step; the cache's
+    host integers stay the lengths, and such a step changes none).
+
+    ``index``: int64 [1], the slot the step's append writes: the residual
+    tier's ``resid_len``, or the raw cache's ``length``, before the step.
+    ``lens``: int32 [3], ``comp_len``, ``resid_len`` and ``prefill_len``
+    after the append; for the raw cache its ``length`` first.
+    ``window_lo``: int32 [1], the total length after the append less the
+    sliding window: the first position the window keeps.
+    """
+    index: torch.Tensor
+    lens: torch.Tensor
+    window_lo: torch.Tensor
+
+    def host_view(self, cache):
+        """``cache`` (a :class:`LayerCache` or ``models.llama``'s raw cache)
+        with the lengths read back from device memory: the CPU's path."""
+        comp, resid, prefill = self.lens.tolist()
+        if isinstance(cache, LayerCache):
+            return dataclasses.replace(cache, comp_len=comp, resid_len=resid,
+                                       prefill_len=prefill)
+        return dataclasses.replace(cache, length=comp)
 
 
 def init_layer_cache(spec: CacheSpec, device=None) -> LayerCache:
@@ -763,6 +794,19 @@ def append(spec: CacheSpec, cache: LayerCache, k_new: torch.Tensor,
         cache.resid_len = i + 1
         if cache.resid_len == spec.group:
             _flush(spec, cache, p0, generator, use_lowrank)
+    return cache
+
+
+def append_at(cache: LayerCache, k_new: torch.Tensor, v_new: torch.Tensor,
+              index: torch.Tensor) -> LayerCache:
+    """:func:`append`'s write of one decode step's K/V [B,H,1,D], at the
+    residual tier's slot ``index`` (int64 [1] in device memory), in place.
+    It reads and changes no host length and never flushes: the append of a
+    step that a CUDA graph replays, whose caller keeps the lengths and
+    takes :func:`append` for a step that fills the tier."""
+    with profiling.span("cache.append"):
+        cache.k_resid.index_copy_(2, index, k_new.to(cache.k_resid.dtype))
+        cache.v_resid.index_copy_(2, index, v_new.to(cache.v_resid.dtype))
     return cache
 
 

@@ -9,7 +9,11 @@
 // sorted COO outlier deltas with their boundary tables, the bf16 residual
 // tier, and the comp_len / resid_len / pad_start masks (the wrapper folds a
 // sliding window into pad_start). It computes what
-// gear_tpu_torch/cache.py::attend computes.
+// gear_tpu_torch/cache.py::attend computes. The lengths every row shares
+// are launch arguments, or read from `lens` in device memory where the
+// caller gives it: the launch then holds no length, so that a CUDA graph
+// replays it with each step's, and comp_len (the argument) only bounds the
+// grid, as in the paged form below.
 //
 // Bound on the card: bytes. Per decode step a layer's compressed cache is
 // read once: codes at bits/16 of the bf16 cache, sidebands, bases (half the
@@ -161,11 +165,12 @@ struct Params {
   const int32_t* v_out_bnd;
   float* part_acc;         // [BH, NS, GQ, D]
   float* part_ml;          // [BH, NS, GQ, 2]
-  const int32_t* lens;         // paged: [B, 3] comp, resid, prefill lengths
+  const int32_t* lens;         // paged: [B, 3] comp, resid, prefill lengths;
+                               // dense: null, or [3] that every row shares
   const int32_t* block_table;  // paged: [B, MAXP], entries < 0 unallocated
   int hkv, d, t, nb, r, group, v_group, ko;  // nb: blocks of a sequence
   int out_pad;  // padding entries at the end of segment 0 of every block
-  int comp_len, resid_len, prefill_len;  // dense form (paged: `lens`)
+  int comp_len, resid_len, prefill_len;  // dense form without `lens`
   int n_split, tiles_per_split;
   int maxp, pb;  // paged: table width, blocks per page
 };
@@ -428,8 +433,12 @@ decode_split_kernel(Params p) {
   // dense form reads both straight from the kernel's parameters)
   const int NBS = PAGED ? p.pb : p.nb;
   const int TS = PAGED ? p.pb * p.group : p.t;
-  const int comp_len = PAGED ? p.lens[seq * 3] : p.comp_len;
-  const int resid_len = PAGED ? p.lens[seq * 3 + 1] : p.resid_len;
+  // the row's lengths: its sequence's in the paged form; in the dense form
+  // those in device memory where given, else the launch's
+  const int32_t* lens = PAGED ? p.lens + seq * 3 : p.lens;
+  const bool dev_lens = PAGED || lens != nullptr;
+  const int comp_len = dev_lens ? lens[0] : p.comp_len;
+  const int resid_len = dev_lens ? lens[1] : p.resid_len;
   const int KO = p.ko, KOH = p.ko / 2;
   const int WD = D * BITS / 32;
   const int NGV = D / p.v_group;
@@ -505,7 +514,7 @@ decode_split_kernel(Params p) {
     const int tile_hi =
         min(ntiles, csplit * p.tiles_per_split + p.tiles_per_split);
     const int n_t = max(0, tile_hi - tile_lo);
-    const int prefill_len = PAGED ? p.lens[seq * 3 + 2] : p.prefill_len;
+    const int prefill_len = dev_lens ? lens[2] : p.prefill_len;
 
     // The block's k-th tile: first token, valid tokens (a multiple of the
     // group: comp_len is), live quant blocks [jlo, nbl) (those wholly left
@@ -1176,8 +1185,10 @@ cudaError_t launch_gq(const Params& p, int bh, int gq, size_t smem,
 #define GEAR_DECODE_ENTRY GEAR_CAT(gear_decode_attention_b, GEAR_DECODE_BITS)
 #endif
 
-// One signature for both forms. Dense: lens and block_table are null, maxp
-// and pb 0, comp_len / resid_len / prefill_len the lengths all rows share.
+// One signature for both forms. Dense: block_table is null, maxp and pb 0,
+// and comp_len / resid_len / prefill_len the lengths all rows share, or,
+// where lens ([3] in device memory) is given, the rows' lengths are read
+// there and comp_len is a host bound on theirs that sizes the grid.
 // Paged: t and nb are a sequence's capacity (MAXP * PB * group tokens,
 // MAXP * PB blocks), comp_len a host bound on every row's comp_len,
 // resid_len and prefill_len unused (each row's are in `lens`). smem:

@@ -4,7 +4,11 @@
 // (reached through flash_decode / raw_attend_flash): q.K^T over bf16
 // K [BH, T, D], the mask pad_start <= t < length, an online softmax with
 // float32 accumulators, p.V, normalised output [BH, GQ, D] f32. It computes
-// what gear_tpu_torch/models/llama.py::raw_attend computes.
+// what gear_tpu_torch/models/llama.py::raw_attend computes. `length` is a
+// launch argument, or read from `lens` in device memory where the caller
+// gives it (a CUDA graph then replays the launch with each step's length);
+// the argument then only bounds the grid, and a block whose tiles lie past
+// the length stores the empty state, which the merge absorbs.
 //
 // Bound on the card: bytes. K and V rows between pad_start and length are
 // read once, 2 x 2 x D bytes per token and kv head; the arithmetic is
@@ -60,6 +64,7 @@ struct FlashParams {
   const bf16* k;             // [BH, T, D]
   const bf16* v;             // [BH, T, D]
   const int32_t* pad_start;  // [BH]
+  const int32_t* lens;       // null, or [1]: the length in device memory
   float* part_acc;           // [BH, NS, GQ, D]
   float* part_ml;            // [BH, NS, GQ, 2]
   int d, t, length, n_split, tiles_per_split;
@@ -104,7 +109,8 @@ __global__ void __launch_bounds__(kTile, 3) flash_split_kernel(FlashParams p) {
   const bf16* k_row = p.k + static_cast<size_t>(bh) * T * D;
   const bf16* v_row = p.v + static_cast<size_t>(bh) * T * D;
   const int pad = p.pad_start[bh];
-  const int ntiles = (p.length + kTile - 1) / kTile;
+  const int length = p.lens ? p.lens[0] : p.length;
+  const int ntiles = (length + kTile - 1) / kTile;
   const int tile_lo = max(split * p.tiles_per_split, pad / kTile);
   const int tile_hi = min(ntiles, split * p.tiles_per_split + p.tiles_per_split);
   const int n_half = 2 * max(0, tile_hi - tile_lo);
@@ -115,7 +121,7 @@ __global__ void __launch_bounds__(kTile, 3) flash_split_kernel(FlashParams p) {
   auto issue = [&](int h) {
     if (h < n_half) {
       const int t0 = (tile_lo + h / 2) * kTile;
-      const int n_valid = min(kTile, p.length - t0);
+      const int n_valid = min(kTile, length - t0);
       const uint4* src = reinterpret_cast<const uint4*>(
           ((h & 1) ? v_row : k_row) + static_cast<size_t>(t0) * D);
       uint4* dst = ring + (h % kSlots) * slot_v;
@@ -135,7 +141,7 @@ __global__ void __launch_bounds__(kTile, 3) flash_split_kernel(FlashParams p) {
     __syncthreads();  // ... everyone's; and slot (h - 1) % kSlots is free
     issue(h + kSlots - 1);
     const int t0 = (tile_lo + h / 2) * kTile;
-    const int n_valid = min(kTile, p.length - t0);
+    const int n_valid = min(kTile, length - t0);
     const uint4* tile = ring + (h % kSlots) * slot_v;
     if ((h & 1) == 0) {
       // Scores: one thread per token, its K row in 16-byte pieces, q in
@@ -216,9 +222,11 @@ cudaError_t launch_flash(const FlashParams& p, int bh, size_t smem,
 }  // namespace
 
 // smem: the shared memory per block that kernels/flash.py planned; it must
-// equal this file's own count (a check that the two stay in step).
+// equal this file's own count (a check that the two stay in step). lens:
+// null, or the length in device memory, which `length` then bounds.
 extern "C" int gear_flash_decode(const float* q, const void* k, const void* v,
-                                 const int32_t* pad_start, float* part_acc,
+                                 const int32_t* pad_start,
+                                 const int32_t* lens, float* part_acc,
                                  float* part_ml, float* out, int bh, int gq,
                                  int d, int t, int length, int n_split,
                                  int tiles_per_split, int smem,
@@ -234,6 +242,7 @@ extern "C" int gear_flash_decode(const float* q, const void* k, const void* v,
   p.k = static_cast<const bf16*>(k);
   p.v = static_cast<const bf16*>(v);
   p.pad_start = pad_start;
+  p.lens = lens;
   p.part_acc = part_acc;
   p.part_ml = part_ml;
   p.d = d;

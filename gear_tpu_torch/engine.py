@@ -8,6 +8,24 @@ donates them to a jitted step instead). Greedy tokens stay on the device
 between steps; the host syncs only every ``sync_every`` steps to check for
 end-of-sequence, and once at the end.
 
+CUDA graphs (the jitted step's counterpart on the card). A decode step
+launches some sixty operations a layer, each enqueued by the host, which
+then sets the pace. So on the card a greedy step of the fused or raw mode
+that does not flush, on an engine with no mesh, is captured once as a CUDA
+graph and replayed: on the second such step in a row over the same cache
+storages and input shapes (the first runs eagerly, so a short generation
+never pays for a capture it cannot use), after one run of the same step on
+a side stream. The graph reads the step's lengths from a small buffer in
+device memory (``cache.StepLens``), which the engine writes from the
+cache's host integers before each replay; the host integers stay the
+lengths, so a flush (run eagerly) or a cache restored in place between
+replays needs nothing from the graph. The engine keeps one graph; a new
+cache or new shapes replace it. Every other step runs eagerly: on the CPU,
+in the other modes, sharded, sampled (its draws would need the generator
+inside the graph) and flushing steps. ``graph_captures``,
+``graph_replays`` and ``eager_steps`` count the steps of each kind, and the
+``engine.decode_step`` span's ``graph`` attribute names its step's.
+
 Modes:
   * ``fused``     — two-tier compressed cache (the speed + memory path), for
     every method of ``config.METHODS`` and for sliding-window models.
@@ -45,9 +63,11 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
-from . import h2o, profiling, sink
+from . import cache as kvcache
+from . import h2o, kernels, profiling, sink
 from .config import CompressionConfig
 from .core import simulated
 from .device import resolve_device
@@ -66,6 +86,30 @@ class EngineConfig:
     temperature: float = 0.0       # 0 = greedy
     sync_every: int = 16           # host<->device sync cadence for early exit
     use_lowrank: bool = True       # False: leave the error bases zero
+
+
+class _StepGraph:
+    """The static inputs of a decode step in device memory, and the CUDA
+    graph that replays the step over them once it is captured."""
+
+    def __init__(self, key, token, position, pad_start, device):
+        self.key = key
+        self.meta = torch.zeros(3, dtype=torch.int64, device=device)
+        m32 = self.meta.view(torch.int32)
+        self.lens = kvcache.StepLens(index=self.meta[:1], lens=m32[2:5],
+                                     window_lo=m32[5:6])
+        self.token = torch.empty(token.shape, dtype=token.dtype,
+                                 device=device)
+        self.position = torch.empty(position.shape, dtype=position.dtype,
+                                    device=device)
+        self.pad_start = (torch.zeros(token.shape, dtype=torch.int32,
+                                      device=device) if pad_start is None
+                          else torch.empty(pad_start.shape,
+                                           dtype=pad_start.dtype,
+                                           device=device))
+        self.graph = None     # the torch.cuda.CUDAGraph, once captured
+        self.out = None       # its static (token, logits)
+        self.launches = {}    # the kernel launches a replay makes, by wrapper
 
 
 class InferenceEngine:
@@ -108,6 +152,12 @@ class InferenceEngine:
                 "the compressed cache masks the window over the packed "
                 "prefix only; use group_size <= sliding_window")
         self._set_specs(batch_size)
+        self.graph_captures = 0   # decode steps captured as a CUDA graph
+        self.graph_replays = 0    # decode steps replayed from it
+        self.eager_steps = 0      # decode steps run operation by operation
+        self._graph: _StepGraph | None = None
+        self._warm_key = None     # the key of the last step, if it could
+                                  # have been captured and ran eagerly
 
     def _set_specs(self, batch: int) -> None:
         """The cache specs of this rank's ``batch`` rows and ``self.cfg``'s
@@ -299,9 +349,26 @@ class InferenceEngine:
         """One decode step of this rank's rows -> (next token [B] int64,
         logits [B,V], caches). After ``shard_seq``, ``caches`` is this
         rank's time shard and ``n_tokens`` the tokens the whole cache holds
-        before the step."""
+        before the step. A step replayed from a CUDA graph (see the
+        module's docstring) returns copies of the graph's outputs."""
+        key = (None if self._eager_because(caches) is not None
+               else self._key(caches, token, position, pad_start))
+        g = self._graph
+        if key is None:
+            kind, self._warm_key = "eager", None
+        elif g is not None and g.key == key:
+            kind = "replay"
+        elif self._warm_key == key:
+            kind = "capture"
+        else:
+            kind, self._warm_key = "eager", key
         with profiling.span("engine.decode_step", step=step,
-                            batch=token.shape[0]):
+                            batch=token.shape[0], graph=kind):
+            if kind == "replay":
+                return self._replay(g, caches, token, position, pad_start)
+            if kind == "capture":
+                return self._capture(key, caches, token, position, pad_start)
+            self.eager_steps += 1
             mode, tp = self.ecfg.mode, self.tp
             init = self._inits(init, generator)
             if self.seq_mesh is not None:
@@ -329,6 +396,118 @@ class InferenceEngine:
                     pad_start=pad_start, init=init, generator=generator,
                     step=step, use_lowrank=self.ecfg.use_lowrank, tp=tp)
             return self._pick(logits, generator), logits, caches
+
+    # -- CUDA graphs of the decode step -----------------------------------
+
+    def _eager_because(self, caches) -> str | None:
+        """Why the next decode step over ``caches`` runs eagerly, or None
+        if a CUDA graph can replay it."""
+        if self.device.type != "cuda":
+            return "device"
+        if self.ecfg.mode not in ("fused", "raw"):
+            return "mode"
+        if self.mesh is not None or self.seq_mesh is not None:
+            return "mesh"
+        if self.ecfg.temperature > 0:
+            return "sampling"
+        if self.ecfg.mode == "raw":
+            # a full cache: the eager step raises
+            return "full" if caches.length >= self.spec.max_len else None
+        return "flush" if caches.resid_len + 1 >= self.spec.group else None
+
+    def _key(self, caches, token, position, pad_start) -> tuple:
+        """What a captured step holds besides its static inputs: the
+        storages of the cache and of the params, and the inputs' shapes
+        and types."""
+        tensors = [t for t in vars(caches).values() if torch.is_tensor(t)]
+        dicts = [self.params]
+        while dicts:
+            for v in dicts.pop().values():
+                if isinstance(v, dict):
+                    dicts.append(v)
+                else:
+                    tensors.append(v)
+        return (tuple((t.data_ptr(), t.shape) for t in tensors),
+                token.shape, token.dtype, position.shape, position.dtype,
+                None if pad_start is None else (pad_start.shape,
+                                                pad_start.dtype))
+
+    def _load(self, g: _StepGraph, caches, token, position, pad_start):
+        """Write the step's inputs into ``g``'s buffers on the current
+        stream: its lengths, from the cache's host integers, in one copy
+        from pinned host memory (the caching host allocator keeps the
+        staging block until the copy is done); then the token, the position
+        and ``pad_start``."""
+        raw = self.ecfg.mode == "raw"
+        n = caches.length if raw else caches.resid_len
+        lens = (n + 1, 0, 0) if raw else (caches.comp_len, n + 1,
+                                          caches.prefill_len)
+        win = self.cfg.sliding_window
+        lo = 0 if win is None else sum(lens[:2]) - win
+        host = torch.empty(3, dtype=torch.int64, pin_memory=g.meta.is_cuda)
+        h = host.numpy()
+        h[0] = n
+        h.view(np.int32)[2:] = (*lens, lo)
+        g.meta.copy_(host, non_blocking=True)
+        g.token.copy_(token)
+        g.position.copy_(position)
+        if pad_start is not None:
+            g.pad_start.copy_(pad_start)
+
+    def _static_step(self, g: _StepGraph, caches):
+        """The greedy step over ``g``'s buffers -> (token [B], logits
+        [B, V]); the host lengths are left to :meth:`_advance`."""
+        logits, _ = llama.forward_decode(
+            self.params, self.cfg, g.token, g.position, caches,
+            spec=self.spec, compress=self.ecfg.mode == "fused",
+            pad_start=g.pad_start, lens=g.lens)
+        return self._pick(logits, None), logits
+
+    def _advance(self, caches) -> None:
+        """The host lengths after a step that read them from device memory
+        (one that does not flush)."""
+        if self.ecfg.mode == "raw":
+            caches.length += 1
+        else:
+            caches.resid_len += 1
+
+    def _capture(self, key, caches, token, position, pad_start):
+        """Run the step over new static buffers on a side stream, then
+        capture it there as the graph later steps replay. The capture pass
+        launches nothing, so the kernel wrappers' counts keep the run's
+        launches, and each replay adds the capture's."""
+        self._graph = None   # the old graph's memory first
+        g = _StepGraph(key, token, position, pad_start, self.device)
+        self._load(g, caches, token, position, pad_start)
+        cur = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            nxt, logits = self._static_step(g, caches)
+        cur.wait_stream(side)
+        nxt.record_stream(cur)
+        logits.record_stream(cur)
+        before = kernels.launch_counts()
+        g.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g.graph, stream=side):
+            g.out = self._static_step(g, caches)
+        g.launches = {k: n - before[k]
+                      for k, n in kernels.launch_counts().items()
+                      if n != before[k]}
+        kernels.add_launch_counts({k: -n for k, n in g.launches.items()})
+        self._graph = g
+        self._advance(caches)
+        self.graph_captures += 1
+        return nxt, logits, caches
+
+    def _replay(self, g: _StepGraph, caches, token, position, pad_start):
+        self._load(g, caches, token, position, pad_start)
+        g.graph.replay()
+        kernels.add_launch_counts(g.launches)
+        self._advance(caches)
+        self.graph_replays += 1
+        nxt, logits = g.out
+        return nxt.clone(), logits.clone(), caches
 
     def _pick(self, logits: torch.Tensor, generator) -> torch.Tensor:
         """Greedy, or sampled at ``temperature`` by the inverse of each

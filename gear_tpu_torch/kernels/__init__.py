@@ -24,3 +24,11 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in _wrappers().values():
         fn.launches = 0
+
+
+def add_launch_counts(counts: dict[str, int]) -> None:
+    """Add ``counts`` (by wrapper name) to the wrappers' counts: the
+    launches of a CUDA graph's replay, which no wrapper call makes."""
+    wrappers = _wrappers()
+    for name, n in counts.items():
+        wrappers[name].launches += n

@@ -49,7 +49,7 @@ SIGNATURES = {
                                  _I64, _I64, _I, _I, _I, _P],
     **{f"gear_decode_attention{form}_b{b}": [_P] * 29 + [_I] * 20 + [_P]
        for b in DECODE_BITS for form in ("", "_paged")},
-    "gear_flash_decode": [_P] * 7 + [_I] * 8 + [_P],
+    "gear_flash_decode": [_P] * 8 + [_I] * 8 + [_P],
 }
 
 

@@ -251,8 +251,8 @@ def decode_attention(q, k_codes, k_scale, k_mn, kpt, kqt, v_codes, v_scale,
                      v_out_idx=None, v_out_val=None, k_out_bnd=None,
                      v_out_bnd=None, out_pad: int = 0,
                      comp_len: int, resid_len: int, prefill_len: int,
-                     hkv: int, bits: int, group: int,
-                     v_group: int) -> torch.Tensor:
+                     hkv: int, bits: int, group: int, v_group: int,
+                     lens: torch.Tensor | None = None) -> torch.Tensor:
     """Launch the decode kernel.
 
     q [BH, GQ, D] f32 with sm_scale folded in (GQ in 1, 2, 4, 8);
@@ -269,6 +269,10 @@ def decode_attention(q, k_codes, k_scale, k_mn, kpt, kqt, v_codes, v_scale,
     them): the kernel does not walk them. ``prefill_len``: the tokens of
     the prefill block, whose quant blocks all hold one P basis (and int8
     scales): the kernel reads it once per row for the tiles inside it.
+    ``lens``: int32 [3] on the device, (comp_len, resid_len, prefill_len)
+    of every row, read by the kernel; ``comp_len`` is then a host bound on
+    it that sizes the grid, and ``resid_len`` / ``prefill_len`` are not
+    read, so that a CUDA graph replays the launch with new lengths.
     Returns the normalised output [BH, GQ, D] f32.
     """
     bh, gq, d = q.shape
@@ -296,6 +300,9 @@ def decode_attention(q, k_codes, k_scale, k_mn, kpt, kqt, v_codes, v_scale,
     })
     if gq not in GQ_SIZES or bh % hkv:
         raise ValueError(f"unsupported GQ={gq} / hkv={hkv}")
+    if lens is not None:
+        check_operands(dev, {"lens": (lens, torch.int32, (3,))})
+        resid_len = prefill_len = 0
     if not (0 <= comp_len <= t and 0 <= resid_len <= group
             and comp_len % group == 0 and 0 <= prefill_len <= comp_len
             and prefill_len % group == 0):
@@ -308,7 +315,7 @@ def decode_attention(q, k_codes, k_scale, k_mn, kpt, kqt, v_codes, v_scale,
                           MAX_TILES)
     out = _launch(
         f"gear_decode_attention_b{bits}", q, leaves, k_resid, v_resid,
-        pad_start, None, None,
+        pad_start, lens, None,
         (bh, hkv, gq, d, t, nb, r, group, v_group, int(base8), ko, out_pad,
          comp_len, resid_len, prefill_len, n_split, per, 0, 0, smem),
         n_split)
@@ -330,6 +337,15 @@ def fold_window(pad_start, window: int | None, total_len: int, batch: int,
     if window is not None:
         pad = pad.clamp(min=total_len - window)
     return pad.contiguous()
+
+
+def fold_window_at(pad_start, window_lo: torch.Tensor | None, batch: int,
+                   device) -> torch.Tensor:
+    """:func:`fold_window` with ``total_len - window`` read on the device:
+    ``window_lo`` int32 [1] (None: no window), so that a CUDA graph replays
+    the fold with each step's length."""
+    pad = fold_window(pad_start, None, 0, batch, device)
+    return pad if window_lo is None else torch.maximum(pad, window_lo)
 
 
 def pad_query(q: torch.Tensor, hkv: int, sm_scale: float | None):
@@ -354,7 +370,8 @@ def pad_query(q: torch.Tensor, hkv: int, sm_scale: float | None):
 def attend_fused(spec: kvcache.CacheSpec, cache: kvcache.LayerCache,
                  q: torch.Tensor, *, sm_scale: float | None = None,
                  pad_start: torch.Tensor | None = None,
-                 window: int | None = None) -> torch.Tensor:
+                 window: int | None = None,
+                 lens: kvcache.StepLens | None = None) -> torch.Tensor:
     """Drop-in for ``cache.attend``: q [B, Hq, Qn, D] -> [B, Hq, Qn, D].
 
     CPU tensors take the plain version (``cache.attend``); CUDA tensors go
@@ -362,7 +379,10 @@ def attend_fused(spec: kvcache.CacheSpec, cache: kvcache.LayerCache,
     at decode) folds into ``pad_start`` over the compressed prefix:
     ``pad = max(pad_start, comp_len + resid_len - window)``. That needs
     ``window >= group``, so that the residual tier (at most ``group`` of the
-    newest tokens) always lies inside the window.
+    newest tokens) always lies inside the window. With ``lens`` the lengths
+    are those in device memory, not the cache's host integers: the kernel
+    reads them, its grid sized from the capacity ``max_len``, and the window
+    folds on the device (the CPU reads them back).
     """
     with profiling.span("decode.attend_fused"):
         if window is not None and window < spec.group:
@@ -371,12 +391,22 @@ def attend_fused(spec: kvcache.CacheSpec, cache: kvcache.LayerCache,
                 "masked through pad_start over the compressed prefix only; "
                 "the residual tier (<= group tokens) must fit inside it")
         if q.device.type == "cpu":
+            if lens is not None:
+                cache = lens.host_view(cache)
             return kvcache.attend(spec, cache, q, sm_scale=sm_scale,
                                   pad_start=pad_start, window=window)
         b, hq, qn, d = q.shape
         hkv = spec.num_kv_heads
         qf, gq_n = pad_query(q, hkv, sm_scale)
-        pad = fold_window(pad_start, window, cache.total_len, b, q.device)
+        if lens is None:
+            pad = fold_window(pad_start, window, cache.total_len, b, q.device)
+            lengths = dict(comp_len=cache.comp_len, resid_len=cache.resid_len,
+                           prefill_len=cache.prefill_len)
+        else:
+            pad = fold_window_at(pad_start, None if window is None
+                                 else lens.window_lo, b, q.device)
+            lengths = dict(comp_len=spec.max_len, resid_len=0, prefill_len=0,
+                           lens=lens.lens)
 
         def flat(x):
             return x.reshape(b * hkv, *x.shape[2:])
@@ -396,9 +426,7 @@ def attend_fused(spec: kvcache.CacheSpec, cache: kvcache.LayerCache,
             flat(cache.k_mn), flat(cache.kpt), flat(cache.kqt),
             flat(cache.v_codes), flat(cache.v_scale), flat(cache.v_mn),
             flat(cache.vqt), flat(cache.vpt), flat(cache.k_resid),
-            flat(cache.v_resid), pad, **extra,
-            comp_len=cache.comp_len, resid_len=cache.resid_len,
-            prefill_len=cache.prefill_len, hkv=hkv,
+            flat(cache.v_resid), pad, **extra, **lengths, hkv=hkv,
             bits=spec.bits, group=spec.group, v_group=spec.v_group)
         out = out.reshape(b, hkv, -1, d)[:, :, :gq_n]
         return out.reshape(b, hq, qn, d).to(q.dtype)

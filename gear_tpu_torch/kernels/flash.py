@@ -40,12 +40,16 @@ def flash_smem_bytes(gq: int, d: int) -> int:
 
 
 def flash_decode(length: int, pad_start: torch.Tensor, q: torch.Tensor,
-                 k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+                 k: torch.Tensor, v: torch.Tensor, *,
+                 lens: torch.Tensor | None = None) -> torch.Tensor:
     """Launch the flash-decode kernel.
 
     ``length``: valid tokens (a host int); pad_start int32 [BH], the first
     attended token per row; q [BH, GQ, D] f32 with sm_scale folded in (GQ in
     1, 2, 4, 8); k, v bf16 [BH, T, D] (D <= 128, a multiple of 8).
+    ``lens``: int32 [1] on the device, the valid tokens, read by the kernel;
+    ``length`` is then a host bound on it that sizes the grid, so that a
+    CUDA graph replays the launch with new lengths.
     Returns the normalised output [BH, GQ, D] f32; rows with no attended
     token come back zero.
     """
@@ -60,6 +64,8 @@ def flash_decode(length: int, pad_start: torch.Tensor, q: torch.Tensor,
         "v": (v, torch.bfloat16, (bh, t, d)),
         "pad_start": (pad_start, torch.int32, (bh,)),
     })
+    if lens is not None:
+        _dec.check_operands(dev, {"lens": (lens, torch.int32, (1,))})
     _dec.check_aligned({"k": k, "v": v})
     if gq not in _dec.GQ_SIZES or d > _dec.TILE or d % 8:
         raise ValueError(f"unsupported GQ={gq} / head_dim={d}")
@@ -75,7 +81,8 @@ def flash_decode(length: int, pad_start: torch.Tensor, q: torch.Tensor,
     lib = _build.library()
     err = lib.gear_flash_decode(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), pad_start.data_ptr(),
-        part_acc.data_ptr(), part_ml.data_ptr(), out.data_ptr(),
+        None if lens is None else lens.data_ptr(), part_acc.data_ptr(),
+        part_ml.data_ptr(), out.data_ptr(),
         bh, gq, d, t, length, n_split, per, flash_smem_bytes(gq, d),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "gear_flash_decode")
@@ -89,7 +96,8 @@ flash_decode.launches = 0
 def raw_attend_flash(spec, c, q: torch.Tensor, *,
                      sm_scale: float | None = None,
                      pad_start: torch.Tensor | None = None,
-                     window: int | None = None) -> torch.Tensor:
+                     window: int | None = None,
+                     lens=None) -> torch.Tensor:
     """Drop-in for ``models.llama.raw_attend``: q [B, Hq, Qn, D] against the
     RawLayerCache ``c`` -> [B, Hq, Qn, D].
 
@@ -97,22 +105,33 @@ def raw_attend_flash(spec, c, q: torch.Tensor, *,
     ``pad = max(pad_start, length - window)``. The raw cache has one tier,
     so this is exact. The reference's wrapper has no ``window`` argument: its
     raw mode masks the window in ``raw_attend``; taking it here keeps Mistral
-    in raw mode on the kernel.
+    in raw mode on the kernel. With ``lens`` (``cache.StepLens``) the length
+    is the one in device memory, not ``c.length``: the kernel reads it, its
+    grid sized from the capacity ``max_len``, and the window folds on the
+    device (the CPU reads it back).
     """
     with profiling.span("flash.raw_attend_flash"):
         if q.device.type == "cpu":
             from ..models import llama
 
+            if lens is not None:
+                c = lens.host_view(c)
             return llama.raw_attend(spec, c, q, sm_scale=sm_scale,
                                     pad_start=pad_start, window=window)
         b, hq, qn, d = q.shape
         hkv = spec.num_kv_heads
         qf, gq_n = _dec.pad_query(q, hkv, sm_scale)
-        pad = _dec.fold_window(pad_start, window, c.length, b, q.device)
+        if lens is None:
+            pad = _dec.fold_window(pad_start, window, c.length, b, q.device)
+            length, dev_len = c.length, None
+        else:
+            pad = _dec.fold_window_at(pad_start, None if window is None
+                                      else lens.window_lo, b, q.device)
+            length, dev_len = spec.max_len, lens.lens[:1]
         pad_bh = pad.repeat_interleave(hkv) if hkv > 1 else pad
         bhn = b * hkv
-        out = flash_decode(c.length, pad_bh, qf,
+        out = flash_decode(length, pad_bh, qf,
                            c.k.reshape(bhn, *c.k.shape[2:]),
-                           c.v.reshape(bhn, *c.v.shape[2:]))
+                           c.v.reshape(bhn, *c.v.shape[2:]), lens=dev_len)
         out = out.reshape(b, hkv, -1, d)[:, :, :gq_n]
         return out.reshape(b, hq, qn, d).to(q.dtype)

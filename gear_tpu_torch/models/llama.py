@@ -423,13 +423,17 @@ def forward_decode(params: dict, cfg: ModelConfig, token: torch.Tensor,
                    pad_start: torch.Tensor | None = None,
                    init: InitFn | None = None,
                    generator: torch.Generator | None = None, step: int = 0,
-                   use_lowrank: bool = True, ffn=mlp_ffn, tp=None):
+                   use_lowrank: bool = True, ffn=mlp_ffn, tp=None,
+                   lens: kvcache.StepLens | None = None):
     """One decode step: append KV (in place), attend over the whole cache.
 
     token/position [B]; ``caches`` is the stacked cache from
     :func:`forward_prefill` and is updated in place and returned, with the
     logits [B, V] f32. ``step`` only labels the init sites; ``ffn(lp, x)``
-    is each layer's feed-forward block.
+    is each layer's feed-forward block. With ``lens`` (``cache.StepLens``)
+    the step takes its lengths from device memory and launches nothing that
+    holds a host length, so that a CUDA graph replays it: it must not flush,
+    and it leaves the host lengths to the caller (``engine.InferenceEngine``).
     """
     h = params["embed"][token].to(cfg.dtype)[:, None]
     cos, sin = rope_cos_sin(position[:, None], cfg.head_dim, cfg.rope_theta)
@@ -439,19 +443,27 @@ def forward_decode(params: dict, cfg: ModelConfig, token: torch.Tensor,
         nonlocal lc
         lc = caches.layer(i)
         if not compress:
-            raw_append(spec, lc, k, v)
+            if lens is None:
+                raw_append(spec, lc, k, v)
+            else:
+                raw_append_at(lc, k, v, lens.index)
             return flash.raw_attend_flash(spec, lc, q, pad_start=pad_start,
-                                          window=cfg.sliding_window)
-        p0 = None if init is None else (
-            lambda which, shape, c=lc.comp_len:
-            init(("decode", step, i, which, c), shape))
-        kvcache.append(spec, lc, k, v, p0=p0, generator=generator,
-                       use_lowrank=use_lowrank)
+                                          window=cfg.sliding_window,
+                                          lens=lens)
+        if lens is None:
+            p0 = None if init is None else (
+                lambda which, shape, c=lc.comp_len:
+                init(("decode", step, i, which, c), shape))
+            kvcache.append(spec, lc, k, v, p0=p0, generator=generator,
+                           use_lowrank=use_lowrank)
+        else:
+            kvcache.append_at(lc, k, v, lens.index)
         return fused.attend_fused(spec, lc, q, pad_start=pad_start,
-                                  window=cfg.sliding_window)
+                                  window=cfg.sliding_window, lens=lens)
 
     logits = _layers(params, cfg, h, cos, sin, mix, ffn, tp)
-    caches.set_lengths(lc)
+    if lens is None:
+        caches.set_lengths(lc)
     return logits[:, 0], caches
 
 
@@ -714,6 +726,16 @@ def raw_append(spec: CacheSpec, c: RawLayerCache, k_new, v_new):
         c.k[:, :, c.length:c.length + n] = k_new
         c.v[:, :, c.length:c.length + n] = v_new
         c.length += n
+        return c
+
+
+def raw_append_at(c: RawLayerCache, k_new, v_new, index: torch.Tensor):
+    """:func:`raw_append`'s write of one token [B,H,1,D] at slot ``index``
+    (int64 [1] in device memory), in place, reading and changing no host
+    length (see ``cache.append_at``)."""
+    with profiling.span("llama.raw_append"):
+        c.k.index_copy_(2, index, k_new.to(c.k.dtype))
+        c.v.index_copy_(2, index, v_new.to(c.v.dtype))
         return c
 
 

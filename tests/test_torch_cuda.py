@@ -5,6 +5,8 @@ fixture, so all workers collect the same tests). Run on the H100, where
 there is no JAX for ``tests/conftest.py`` to import, with
 ``python -m pytest -c /dev/null --noconftest --rootdir . tests/test_torch_cuda.py -q``.
 """
+import zlib
+
 import chip_smoke
 import pytest
 import torch
@@ -889,3 +891,158 @@ def test_tensor_parallel_step_on_the_card(cuda, tmp_path):
         assert res["counts"]["decode_attention"] == 2
         assert res["counts"]["quant_pack_tokens"] == 2
         assert res["err"] < chip_smoke.LOCKSTEP_LIMIT
+
+
+# The decode step as a CUDA graph (``engine.InferenceEngine``): replayed
+# against the eager step, and B1 / B4 with their lengths in device memory
+# against their launches with host lengths.
+
+def _site_inits(device):
+    """Power-iteration inits drawn from a seed of the site alone, so that
+    two runs of the same steps draw the same."""
+    def init(site, shape):
+        gen = torch.Generator(device=device).manual_seed(
+            zlib.crc32(repr(site).encode()))
+        return torch.rand(shape, generator=gen, device=device)
+    return init
+
+
+@pytest.mark.parametrize("mode", ["fused", "raw"])
+def test_graph_decode_matches_eager(cuda, mode):
+    """A Mistral-like model (window 160; fused: GEAR int4, 5% outliers,
+    group 16), prompts of 110 and 30 tokens in a bucket of 112, decoded as
+    the benchmark's window decodes: 70 greedy steps from the prompt pass's
+    cache, a restore of its device copy, 70 steps again (each 70 hold four
+    flushes in fused mode; the window binds from step 48). The engine
+    replays a graph; the eager steps are ``llama.forward_decode`` and an
+    argmax. Tokens and logits equal at every step; the returned tokens are
+    distinct tensors; one capture, a replay for every step that neither
+    flushes nor comes before the capture; the engine's kernel launches
+    count as the eager steps' do."""
+    cfg = mistral.tiny(head_dim=32, hidden_size=128, num_heads=4,
+                       sliding_window=160)
+    params = llama.init_params(cfg, device=cuda)
+    comp = CompressionConfig(num_layers=cfg.num_layers,
+                             compress_method="GEAR", quantize_bit=4,
+                             group_size=16, rank=2, prefill_rank=4, loop=2,
+                             left=0.05)
+    eng = InferenceEngine(cfg, params, comp,
+                          EngineConfig(max_len=192, mode=mode), batch_size=2)
+    init = _site_inits(cuda)
+    tokens, mask = eng.left_pad([list(range(3, 113)), list(range(40, 70))],
+                                0, 112)
+    logits, caches = eng.prefill(tokens, mask, init=init)
+    tok0 = logits[:, -1].argmax(-1)
+    prompt_len = mask.sum(1).to(torch.int32)
+    pad = (112 - prompt_len).to(torch.int32)
+    snap = {k: v.clone() if torch.is_tensor(v) else v
+            for k, v in vars(caches).items()}
+    ref = type(caches)(**{k: v.clone() if torch.is_tensor(v) else v
+                          for k, v in vars(caches).items()})
+    kernels.reset_launch_counts()
+    served, want = [], []
+    for _ in range(2):
+        for k, v in snap.items():   # the benchmark's restore
+            if torch.is_tensor(v):
+                getattr(caches, k).copy_(v)
+            else:
+                setattr(caches, k, v)
+        cur = cur_ref = tok0
+        for j in range(70):
+            pos = prompt_len + j
+            cur, lg, caches = eng.decode_step(caches, cur, pos, pad, step=j,
+                                              init=init)
+            lg_ref, ref = llama.forward_decode(
+                params, cfg, cur_ref, pos, ref, spec=eng.spec,
+                compress=mode == "fused", pad_start=pad, init=init, step=j)
+            cur_ref = lg_ref.argmax(-1)
+            assert torch.equal(cur, cur_ref), j
+            assert torch.equal(lg, lg_ref), j
+            served.append(cur)
+            want.append(cur_ref)
+        for k, v in vars(ref).items():   # the reference restarts too
+            if torch.is_tensor(v):
+                v.copy_(snap[k])
+            else:
+                setattr(ref, k, snap[k])
+    counts = kernels.launch_counts()
+    assert len({t.data_ptr() for t in served}) == len(served)
+    assert torch.equal(torch.stack(served), torch.stack(want))
+    flushes = 8 if mode == "fused" else 0
+    assert eng.graph_captures == 1
+    assert eng.graph_replays == 140 - flushes - 2
+    assert eng.eager_steps == flushes + 1
+    name = "decode_attention" if mode == "fused" else "flash_decode"
+    assert counts[name] == 2 * cfg.num_layers * 140   # engine and reference
+
+
+@pytest.mark.parametrize("comp_len,resid_len,window", [
+    (512, 63, None), (576, 1, None), (576, 63, 300), (576, 1, 300)],
+    ids=["before_flush", "after_flush", "before_flush_window",
+         "after_flush_window"])
+def test_decode_kernel_reads_device_lengths(cuda, comp_len, resid_len,
+                                            window):
+    """B1 with its lengths in device memory and its grid sized from the
+    capacity, against its launch with host lengths: bit-equal, with the
+    residual tier just before and just after a flush, with and without a
+    window that binds; GEAR's outliers, a prefill of 512 tokens, padding."""
+    spec = TC.CacheSpec(batch=2, num_kv_heads=4, head_dim=128, max_len=1024,
+                        bits=4, group=64, outliers_per_block=162)
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    n = 512 + resid_len + (comp_len - 512)
+    k = torch.randn((2, 4, n, 128), generator=gen, device=cuda).bfloat16()
+    v = torch.randn((2, 4, n, 128), generator=gen, device=cuda).bfloat16()
+    cache = TC.prefill(spec, k[:, :, :512], v[:, :, :512], generator=gen)
+    for t in range(512, n):
+        TC.append(spec, cache, k[:, :, t:t + 1], v[:, :, t:t + 1],
+                  generator=gen)
+    assert (cache.comp_len, cache.resid_len) == (comp_len, resid_len)
+    q = torch.randn((2, 16, 1, 128), generator=gen, device=cuda)
+    pad = torch.tensor([0, 200], dtype=torch.int32, device=cuda)
+    lens = TC.StepLens(
+        index=torch.zeros(1, dtype=torch.int64, device=cuda),
+        lens=torch.tensor([comp_len, resid_len, 512], dtype=torch.int32,
+                          device=cuda),
+        window_lo=torch.tensor([cache.total_len - (window or 0)],
+                               dtype=torch.int32, device=cuda))
+    # one tile a split either way, so that the partial states are the same
+    bps = TK.blocks_per_sm(TK.decode_smem_bytes(4, 128, 4, 4, 64, 64, 256,
+                                                False, False))
+    for n_tok in (comp_len, spec.max_len):
+        assert TK.splits(n_tok, 8, TK.sm_count(cuda), bps, TK.MAX_TILES)[1] \
+            == 1
+    want = TK.attend_fused(spec, cache, q, pad_start=pad, window=window)
+    before = TK.decode_attention.launches
+    got = TK.attend_fused(spec, cache, q, pad_start=pad, window=window,
+                          lens=lens)
+    assert TK.decode_attention.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("length,window", [
+    (575, None), (576, None), (129, None), (575, 300), (577, 300)])
+def test_flash_kernel_reads_device_lengths(cuda, length, window):
+    """B4 with its length in device memory and its grid sized from the
+    capacity, against its launch with the host length: bit-equal, with and
+    without a window that binds."""
+    spec = TC.CacheSpec(batch=2, num_kv_heads=4, head_dim=128, max_len=1024)
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    k = torch.randn((2, 4, 1024, 128), generator=gen, device=cuda).bfloat16()
+    v = torch.randn((2, 4, 1024, 128), generator=gen, device=cuda).bfloat16()
+    c = llama.RawLayerCache(k=k, v=v, length=length)
+    q = torch.randn((2, 16, 1, 128), generator=gen, device=cuda)
+    pad = torch.tensor([0, 200], dtype=torch.int32, device=cuda)
+    lens = TC.StepLens(
+        index=torch.zeros(1, dtype=torch.int64, device=cuda),
+        lens=torch.tensor([length, 0, 0], dtype=torch.int32, device=cuda),
+        window_lo=torch.tensor([length - (window or 0)], dtype=torch.int32,
+                               device=cuda))
+    for n_tok in (length, spec.max_len):
+        assert TK.splits(n_tok, 8, TK.sm_count(cuda), TF.BLOCKS_PER_SM)[1] \
+            == 1
+    want = TF.raw_attend_flash(spec, c, q, pad_start=pad, window=window)
+    before = TF.flash_decode.launches
+    got = TF.raw_attend_flash(spec, c, q, pad_start=pad, window=window,
+                              lens=lens)
+    assert TF.flash_decode.launches == before + 1
+    assert torch.equal(got, want)

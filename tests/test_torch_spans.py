@@ -94,7 +94,7 @@ def test_a_decode_step_is_one_root_over_its_layers(mode):
     assert len(roots) == 1
     root = recs[roots[0]]
     assert root.name == "engine.decode_step"
-    assert root.attrs == {"step": 1, "batch": 2}
+    assert root.attrs == {"step": 1, "batch": 2, "graph": "eager"}
     assert all(r.root == roots[0] and r.t1 is not None and r.error is None
                for r in recs)
     layers = children(recs, roots[0])
