@@ -11,7 +11,9 @@ end-of-sequence, and once at the end.
 CUDA graphs (the jitted step's counterpart on the card). A decode step
 launches some sixty operations a layer, each enqueued by the host, which
 then sets the pace. So on the card a greedy step of the fused or raw mode
-that does not flush, on an engine with no mesh, is captured once as a CUDA
+that does not flush, on an engine with no mesh or one over ``nccl``
+(``shard``: each rank captures its share of the step with its collectives
+inside, and all ranks replay in step), is captured once as a CUDA
 graph and replayed: on the second such step in a row over the same cache
 storages and input shapes (the first runs eagerly, so a short generation
 never pays for a capture it cannot use), after one run of the same step on
@@ -21,10 +23,17 @@ cache's host integers before each replay; the host integers stay the
 lengths, so a flush (run eagerly) or a cache restored in place between
 replays needs nothing from the graph. The engine keeps one graph; a new
 cache or new shapes replace it. Every other step runs eagerly: on the CPU,
-in the other modes, sharded, sampled (its draws would need the generator
-inside the graph) and flushing steps. ``graph_captures``,
-``graph_replays`` and ``eager_steps`` count the steps of each kind, and the
-``engine.decode_step`` span's ``graph`` attribute names its step's.
+in the other modes, sharded over ``gloo`` (whose collectives pass through
+the host) or over time (``shard_seq``), sampled (its draws would need the
+generator inside the graph) and flushing steps. ``graph_captures``,
+``graph_replays`` and ``eager_steps`` count this rank's steps of each
+kind, and the ``engine.decode_step`` span's ``graph`` attribute names its
+step's.
+
+Models: a ``models.llama.ModelConfig`` runs Llama's passes; a
+``models.mixtral.MixtralConfig`` the same passes with its expert mixture as
+each layer's feed-forward block (``mixtral.engine_ffn``), in modes
+``fused``, ``raw`` and ``simulated``.
 
 Modes:
   * ``fused``     — two-tier compressed cache (the speed + memory path), for
@@ -52,9 +61,10 @@ decode step ``step``.
 
 Parallelism (``parallel/``): every rank of a ``torch.distributed`` process
 group builds the same engine and calls ``generate`` with the same prompts.
-``shard(mesh)`` splits the heads and the FFN over the mesh's ``model`` axis
-and the batch over its ``data`` axis, in every mode; ``shard_seq(mesh)``
-splits the compressed cache along time over its ``seq`` axis (fused mode).
+``shard(mesh)`` splits the heads and the FFN (a mixture's experts) over the
+mesh's ``model`` axis and the batch over its ``data`` axis, in every mode;
+``shard_seq(mesh)`` splits the compressed cache along time over its ``seq``
+axis (fused mode).
 Each rank draws every random init and sample for the whole batch and all
 heads from the shared seeded generator and keeps its own, so a sharded run
 takes the unsharded run's draws.
@@ -71,7 +81,7 @@ from . import h2o, kernels, profiling, sink
 from .config import CompressionConfig
 from .core import simulated
 from .device import resolve_device
-from .models import llama
+from .models import llama, mixtral
 from .parallel import context, distributed, sharding
 
 MODES = ("fused", "raw", "simulated", "h2o", "sink")
@@ -110,6 +120,7 @@ class _StepGraph:
         self.graph = None     # the torch.cuda.CUDAGraph, once captured
         self.out = None       # its static (token, logits)
         self.launches = {}    # the kernel launches a replay makes, by wrapper
+        self.collectives = {}  # the collective calls and bytes it makes
 
 
 class InferenceEngine:
@@ -130,8 +141,14 @@ class InferenceEngine:
         if params["embed"].device != self.device:
             raise ValueError(f"params on {params['embed'].device}, engine on "
                              f"{self.device}")
+        moe = isinstance(model_cfg, mixtral.MixtralConfig)
+        if moe and engine_cfg.mode not in ("fused", "raw", "simulated"):
+            raise ValueError(f"a mixture of experts runs in modes fused, raw "
+                             f"and simulated, not {engine_cfg.mode!r}")
         self.cfg = model_cfg
         self.params = params
+        # each layer's feed-forward block: Llama's, or the expert mixture
+        self.ffn = mixtral.engine_ffn(model_cfg) if moe else llama.mlp_ffn
         self.comp = comp or CompressionConfig(num_layers=model_cfg.num_layers)
         self.ecfg = engine_cfg
         self.batch = batch_size
@@ -155,6 +172,7 @@ class InferenceEngine:
         self.graph_captures = 0   # decode steps captured as a CUDA graph
         self.graph_replays = 0    # decode steps replayed from it
         self.eager_steps = 0      # decode steps run operation by operation
+        self.router_log = None    # log_routing(): a mixture's routing
         self._graph: _StepGraph | None = None
         self._warm_key = None     # the key of the last step, if it could
                                   # have been captured and ran eagerly
@@ -179,13 +197,16 @@ class InferenceEngine:
 
     # -- parallelism ----------------------------------------------------
 
-    def shard(self, mesh) -> "InferenceEngine":
+    def shard(self, mesh, *, local: bool = False) -> "InferenceEngine":
         """Tensor and data parallelism over ``mesh``'s ``model`` and
         ``data`` axes (``parallel.sharding``; an absent axis counts as 1).
         This rank keeps its slices of the params and runs its share of the
-        heads and the FFN (``self.cfg`` becomes the rank's config) for its
-        rows of the batch; the layer loop reduces the partial sums and
-        gathers the logits, and ``generate`` gathers every row's tokens.
+        heads and the FFN, or of a mixture's experts (``self.cfg`` becomes
+        the rank's config), for its rows of the batch; the layer loop
+        reduces the partial sums and gathers the logits, and ``generate``
+        gathers every row's tokens. With ``local`` the engine's params
+        already are this rank's slices, as ``sharding.shard_params`` leaves
+        them (a model no card holds whole is never made whole).
         Raises unless the heads, the FFN, the vocabulary and the batch
         divide evenly, and, in simulated mode, unless the method's token
         groups (along the flattened heads) stay within a rank's heads:
@@ -205,12 +226,31 @@ class InferenceEngine:
                 f"{lcomp.group_size}) mixes the heads of several ranks: "
                 "tensor parallelism there takes GEARL or KIVI with groups "
                 "inside a rank's heads")
-        self.params = sharding.shard_params(mesh, self.params)
+        if not local:
+            self.params = sharding.shard_params(mesh, self.params)
         self.cfg = cfg
         self.mesh = mesh
         self.tp = sharding.TensorParallel(mesh) if nm > 1 else None
         self._set_specs(self.batch // nd)
+        if isinstance(cfg, mixtral.MixtralConfig):
+            self.ffn = mixtral.engine_ffn(cfg, self.tp, self.router_log)
         return self
+
+    def log_routing(self) -> "mixtral.RouterLog":
+        """Keep a mixture's router probabilities from now on, for this
+        rank's rows (``mixtral.RouterLog``: every prompt pass's, and each
+        decode step's, replayed or not)."""
+        if not isinstance(self.cfg, mixtral.MixtralConfig):
+            raise ValueError("only a mixture of experts routes")
+        self.router_log = mixtral.RouterLog(
+            self.cfg.num_layers, self.spec.batch, self.cfg.num_experts,
+            self.device)
+        self.ffn = mixtral.engine_ffn(self.cfg, self.tp, self.router_log)
+        return self.router_log
+
+    def _log_begin(self, prompt: bool) -> None:
+        if self.router_log is not None:
+            self.router_log.begin(prompt)
 
     def shard_seq(self, mesh, axis: str = "seq") -> "InferenceEngine":
         """Sequence-parallel decode (context parallelism) over ``mesh``'s
@@ -222,6 +262,9 @@ class InferenceEngine:
         window."""
         if self.ecfg.mode != "fused":
             raise ValueError("sequence-parallel decode requires mode='fused'")
+        if self.ffn is not llama.mlp_ffn:
+            raise ValueError("sequence-parallel decode runs Llama's "
+                             "feed-forward block only")
         win = self.cfg.sliding_window
         if win is not None and win < self.ecfg.max_len:
             raise ValueError(
@@ -294,6 +337,7 @@ class InferenceEngine:
         caches)."""
         with profiling.span("engine.prefill", batch=tokens.shape[0],
                             bucket=tokens.shape[1]):
+            self._log_begin(prompt=True)
             positions = torch.clamp(torch.cumsum(mask, dim=1) - 1, min=0)
             s = tokens.shape[1]
             mode, tp = self.ecfg.mode, self.tp
@@ -324,7 +368,7 @@ class InferenceEngine:
                 self.params, self.cfg, tokens, positions, mask, self.spec,
                 compress=self.ecfg.mode == "fused", init=init,
                 generator=generator, use_lowrank=self.ecfg.use_lowrank,
-                kv_hook=hook, tp=tp)
+                kv_hook=hook, ffn=self.ffn, tp=tp)
 
     def recompress(self, caches, end: int, *, step: int = 0, init=None,
                    generator: torch.Generator | None = None):
@@ -369,6 +413,7 @@ class InferenceEngine:
             if kind == "capture":
                 return self._capture(key, caches, token, position, pad_start)
             self.eager_steps += 1
+            self._log_begin(prompt=False)
             mode, tp = self.ecfg.mode, self.tp
             init = self._inits(init, generator)
             if self.seq_mesh is not None:
@@ -394,7 +439,8 @@ class InferenceEngine:
                     self.params, self.cfg, token, position, caches,
                     spec=self.spec, compress=mode == "fused",
                     pad_start=pad_start, init=init, generator=generator,
-                    step=step, use_lowrank=self.ecfg.use_lowrank, tp=tp)
+                    step=step, use_lowrank=self.ecfg.use_lowrank,
+                    ffn=self.ffn, tp=tp)
             return self._pick(logits, generator), logits, caches
 
     # -- CUDA graphs of the decode step -----------------------------------
@@ -406,8 +452,10 @@ class InferenceEngine:
             return "device"
         if self.ecfg.mode not in ("fused", "raw"):
             return "mode"
-        if self.mesh is not None or self.seq_mesh is not None:
-            return "mesh"
+        if self.seq_mesh is not None or (
+                self.mesh is not None
+                and not distributed.capturable(self.mesh)):
+            return "mesh"   # gloo's collectives pass through the host
         if self.ecfg.temperature > 0:
             return "sampling"
         if self.ecfg.mode == "raw":
@@ -417,8 +465,8 @@ class InferenceEngine:
 
     def _key(self, caches, token, position, pad_start) -> tuple:
         """What a captured step holds besides its static inputs: the
-        storages of the cache and of the params, and the inputs' shapes
-        and types."""
+        storages of the cache and of the params, the inputs' shapes and
+        types, and the process groups of its collectives."""
         tensors = [t for t in vars(caches).values() if torch.is_tensor(t)]
         dicts = [self.params]
         while dicts:
@@ -427,10 +475,14 @@ class InferenceEngine:
                     dicts.append(v)
                 else:
                     tensors.append(v)
+        groups = (None if self.mesh is None else
+                  tuple(id(self.mesh.group(a)) for a in self.mesh.shape))
+        if self.router_log is not None:
+            tensors.append(self.router_log.step)
         return (tuple((t.data_ptr(), t.shape) for t in tensors),
                 token.shape, token.dtype, position.shape, position.dtype,
                 None if pad_start is None else (pad_start.shape,
-                                                pad_start.dtype))
+                                                pad_start.dtype), groups)
 
     def _load(self, g: _StepGraph, caches, token, position, pad_start):
         """Write the step's inputs into ``g``'s buffers on the current
@@ -457,10 +509,11 @@ class InferenceEngine:
     def _static_step(self, g: _StepGraph, caches):
         """The greedy step over ``g``'s buffers -> (token [B], logits
         [B, V]); the host lengths are left to :meth:`_advance`."""
+        self._log_begin(prompt=False)
         logits, _ = llama.forward_decode(
             self.params, self.cfg, g.token, g.position, caches,
             spec=self.spec, compress=self.ecfg.mode == "fused",
-            pad_start=g.pad_start, lens=g.lens)
+            pad_start=g.pad_start, ffn=self.ffn, tp=self.tp, lens=g.lens)
         return self._pick(logits, None), logits
 
     def _advance(self, caches) -> None:
@@ -474,8 +527,11 @@ class InferenceEngine:
     def _capture(self, key, caches, token, position, pad_start):
         """Run the step over new static buffers on a side stream, then
         capture it there as the graph later steps replay. The capture pass
-        launches nothing, so the kernel wrappers' counts keep the run's
-        launches, and each replay adds the capture's."""
+        launches nothing, so the kernel wrappers' and the collectives'
+        counts keep the run's, and each replay adds the capture's. A
+        sharded capture holds its ranks' collectives, and is made in
+        thread-local mode, so that the process group's own threads may go
+        on querying its earlier work."""
         self._graph = None   # the old graph's memory first
         g = _StepGraph(key, token, position, pad_start, self.device)
         self._load(g, caches, token, position, pad_start)
@@ -488,13 +544,20 @@ class InferenceEngine:
         nxt.record_stream(cur)
         logits.record_stream(cur)
         before = kernels.launch_counts()
+        sent = distributed.collective_counts()
         g.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g.graph, stream=side):
+        mode = "global" if self.mesh is None else "thread_local"
+        with torch.cuda.graph(g.graph, stream=side,
+                              capture_error_mode=mode):
             g.out = self._static_step(g, caches)
         g.launches = {k: n - before[k]
                       for k, n in kernels.launch_counts().items()
                       if n != before[k]}
         kernels.add_launch_counts({k: -n for k, n in g.launches.items()})
+        g.collectives = {k: n - sent[k]
+                         for k, n in distributed.collective_counts().items()}
+        distributed.add_collective_counts(
+            {k: -n for k, n in g.collectives.items()})
         self._graph = g
         self._advance(caches)
         self.graph_captures += 1
@@ -504,6 +567,7 @@ class InferenceEngine:
         self._load(g, caches, token, position, pad_start)
         g.graph.replay()
         kernels.add_launch_counts(g.launches)
+        distributed.add_collective_counts(g.collectives)
         self._advance(caches)
         self.graph_replays += 1
         nxt, logits = g.out

@@ -314,12 +314,14 @@ def _finish_layer(cfg: ModelConfig, lp: dict, h, attn, ffn=mlp_ffn,
     added to the residual stream. Under tensor parallelism (``tp``, a
     ``parallel.sharding.TensorParallel``) ``wo`` and ``wd`` hold this rank's
     rows, so both outputs are partial sums, reduced before the add (added
-    first, the residual would count once per rank)."""
+    first, the residual would count once per rank). A partial sum the
+    ``ffn`` hands over in float32 (an expert mixture's) is reduced so and
+    cast to the stream's dtype."""
     reduce = _no_reduce if tp is None else tp.reduce
     b, s = h.shape[:2]
     h = h + reduce(attn.transpose(1, 2).reshape(b, s, -1) @ lp["wo"])
     x2 = rmsnorm(h, lp["mlp_norm"], cfg.rms_eps)
-    return h + reduce(ffn(lp, x2))
+    return h + reduce(ffn(lp, x2)).to(h.dtype)
 
 
 def _no_reduce(x):

@@ -15,7 +15,13 @@ the batch are folded into one ``[1, rows, E] @ [NE, E, F]`` product, and
 long prompts run the mixture over chunks of :data:`MOE_ROWS` rows, so the
 ``[NE, rows, F]`` intermediates stay bounded. :func:`moe_block_ep` runs
 the experts sharded over the ranks of an ``expert`` mesh axis
-(``parallel.distributed``).
+(``parallel.distributed``). The engine runs Mixtral through the same
+passes with :func:`engine_ffn` as the ``ffn``: under its tensor
+parallelism the ``model`` axis holds whole experts (``parallel.sharding``),
+every rank routes over all of them, runs its own and hands the layer loop
+the float32 partial sum that its ``all_reduce`` completes. Nothing in the
+mixture syncs with the host, so a CUDA graph holds it. Each call is a
+``moe.block`` span (attributes ``rows``, ``experts_local``).
 """
 from __future__ import annotations
 
@@ -25,6 +31,7 @@ from dataclasses import dataclass
 import torch
 import torch.nn.functional as F
 
+from .. import profiling
 from ..device import resolve_device
 from ..parallel import distributed, sharding
 from . import llama
@@ -106,11 +113,49 @@ def init_params(cfg: MixtralConfig, *, seed: int = 0, device=None) -> dict:
     }
 
 
-def _route(x: torch.Tensor, router: torch.Tensor, top_k: int):
+class RouterLog:
+    """The router's probabilities in an engine's passes, kept for a check
+    that follows the program's choice of experts: ``take_prompt()`` [L, B,
+    S, NE] of the last prompt pass, and ``step`` [L, B, NE] of the last decode
+    step, a buffer every decode step writes in place (a replayed CUDA graph
+    included: the capture holds the copies)."""
+
+    def __init__(self, num_layers: int, batch: int, num_experts: int,
+                 device):
+        self.step = torch.zeros((num_layers, batch, num_experts),
+                                dtype=torch.float32, device=device)
+        self._prompt: list[torch.Tensor] = []
+        self._layer: int | None = None   # the decode step's next layer
+
+    def begin(self, prompt: bool) -> None:
+        """Before a pass: a prompt pass or a decode step."""
+        if prompt:
+            self._prompt = []
+        self._layer = None if prompt else 0
+
+    def put(self, probs: torch.Tensor) -> None:
+        """One layer's probabilities [B, S, NE], in layer order."""
+        if self._layer is None:
+            self._prompt.append(probs.clone())
+        else:
+            self.step[self._layer].copy_(probs[:, -1])
+            self._layer += 1
+
+    def take_prompt(self) -> torch.Tensor:
+        """The last prompt pass's probabilities [L, B, S, NE], let go of."""
+        out, self._prompt = torch.stack(self._prompt), []
+        return out
+
+
+def _route(x: torch.Tensor, router: torch.Tensor, top_k: int,
+           log: RouterLog | None = None):
     """The gates [B*S, NE] f32 of x [B,S,E]: float32 logits, softmax over the
     experts, every expert whose probability reaches the k-th largest kept
-    (so ties keep more than k), the kept renormalised."""
+    (so ties keep more than k), the kept renormalised. ``log`` keeps the
+    probabilities."""
     probs = torch.softmax(x.float() @ router.float(), dim=-1)   # [B,S,NE]
+    if log is not None:
+        log.put(probs)
     thresh = probs.topk(top_k, dim=-1).values[..., -1:]
     gate = torch.where(probs >= thresh, probs, torch.zeros_like(probs))
     return (gate / gate.sum(dim=-1, keepdim=True)).reshape(-1, gate.shape[-1])
@@ -134,6 +179,19 @@ def _mixture(x: torch.Tensor, gate: torch.Tensor, wg: torch.Tensor,
     return out
 
 
+def moe_partial(x: torch.Tensor, router: torch.Tensor, wg: torch.Tensor,
+                wu: torch.Tensor, wd: torch.Tensor, top_k: int,
+                first: int = 0, log: RouterLog | None = None) -> torch.Tensor:
+    """The weighted sum [B,S,E] f32 of the outputs of the experts that
+    ``wg``/``wu``/``wd`` hold, experts ``first`` .. ``first + n`` of the
+    router's NE, routed over all NE (:func:`_route`)."""
+    n = wg.shape[0]
+    with profiling.span("moe.block", rows=x.shape[0] * x.shape[1],
+                        experts_local=n):
+        gate = _route(x, router, top_k, log)[:, first:first + n]
+        return _mixture(x, gate, wg, wu, wd).reshape(x.shape)
+
+
 def moe_block(x: torch.Tensor, router: torch.Tensor, wg: torch.Tensor,
               wu: torch.Tensor, wd: torch.Tensor, top_k: int) -> torch.Tensor:
     """Sparse-MoE FFN as a dense weighted mixture.
@@ -143,8 +201,7 @@ def moe_block(x: torch.Tensor, router: torch.Tensor, wg: torch.Tensor,
     and ``h_g * h_u`` run in the model dtype, the weighted sum over the
     experts in float32, cast back at the end.
     """
-    gate = _route(x, router, top_k)
-    return _mixture(x, gate, wg, wu, wd).to(x.dtype).reshape(x.shape)
+    return moe_partial(x, router, wg, wu, wd, top_k).to(x.dtype)
 
 
 def moe_block_ep(x: torch.Tensor, router: torch.Tensor, wg: torch.Tensor,
@@ -161,11 +218,9 @@ def moe_block_ep(x: torch.Tensor, router: torch.Tensor, wg: torch.Tensor,
     ne, n = router.shape[-1], mesh.axis_size(axis)
     if ne % n:
         raise ValueError(f"{ne} experts do not split evenly over {axis}={n}")
-    nel = ne // n
-    lo = mesh.index(axis) * nel
-    gate = _route(x, router, top_k)[:, lo:lo + nel]
-    part = distributed.all_reduce(_mixture(x, gate, wg, wu, wd), mesh, axis)
-    return part.to(x.dtype).reshape(x.shape)
+    part = moe_partial(x, router, wg, wu, wd, top_k,
+                       first=mesh.index(axis) * (ne // n))
+    return distributed.all_reduce(part, mesh, axis).to(x.dtype)
 
 
 def shard_experts(mesh, params: dict, axis: str = "expert") -> dict:
@@ -176,6 +231,24 @@ def shard_experts(mesh, params: dict, axis: str = "expert") -> dict:
     for name in ("wg", "wu", "wd"):
         layers[name] = sharding.local_slice(layers[name], (None, axis), mesh)
     return {**params, "layers": layers}
+
+
+def engine_ffn(cfg: MixtralConfig, tp=None, log: RouterLog | None = None):
+    """The ``ffn(lp, x)`` the engine runs: :func:`moe_block`; under tensor
+    parallelism (``tp``, a ``parallel.sharding.TensorParallel`` whose axis
+    holds this rank's experts) :func:`moe_partial` over them, a partial sum
+    that the layer loop reduces in float32 as it does ``wo``'s. ``log``
+    keeps the router's probabilities."""
+    if tp is None and log is None:
+        return _moe_ffn(cfg)
+    index = 0 if tp is None else tp.mesh.index(tp.axis)
+
+    def ffn(lp: dict, x: torch.Tensor) -> torch.Tensor:
+        part = moe_partial(x, lp["router"], lp["wg"], lp["wu"], lp["wd"],
+                           cfg.experts_per_token,
+                           first=index * lp["wg"].shape[0], log=log)
+        return part if tp is not None else part.to(x.dtype)
+    return ffn
 
 
 def _moe_ffn(cfg: MixtralConfig, ep_mesh=None, ep_axis: str = "expert"):

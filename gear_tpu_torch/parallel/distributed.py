@@ -14,6 +14,13 @@ collective the port needs is an ``all_reduce`` (SUM or MAX) or a
 ``broadcast``, the two that gloo runs on CUDA tensors (it copies them
 through host memory); a gather is an ``all_reduce`` of a zero-filled buffer
 (:func:`gather`).
+
+Under ``nccl`` both collectives can be captured into a CUDA graph (gloo's
+cannot: it copies through the host): :func:`capturable` says whether every
+group of a mesh runs ``nccl``. :func:`collective_counts` counts the
+collective calls and their bytes (a graph's replay adds its capture's,
+:func:`add_collective_counts`), and each call is a ``comm.all_reduce``
+span (attributes ``axis``, ``bytes``).
 """
 from __future__ import annotations
 
@@ -23,6 +30,8 @@ import os
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from .. import profiling
 
 AXES = ("data", "seq", "model", "expert")
 
@@ -98,13 +107,48 @@ class Mesh:
         return self._groups.get(axis)
 
 
+_counts = {"calls": 0, "bytes": 0}
+
+
+def collective_counts() -> dict[str, int]:
+    """Collective calls made by this process since the last reset, and the
+    bytes they reduced (each call's tensor once)."""
+    return dict(_counts)
+
+
+def reset_collective_counts() -> None:
+    for k in _counts:
+        _counts[k] = 0
+
+
+def add_collective_counts(counts: dict[str, int]) -> None:
+    """Add ``counts`` to :func:`collective_counts`: the collectives of a
+    CUDA graph's replay, which no call makes."""
+    for k, n in counts.items():
+        _counts[k] += n
+
+
+def capturable(mesh) -> bool:
+    """Whether a CUDA graph can hold the collectives of ``mesh``: every
+    group of a :class:`Mesh` of more than one rank runs ``nccl``."""
+    if not isinstance(mesh, Mesh):
+        return False
+    groups = [g for g in mesh._groups.values() if g is not None]
+    return bool(groups) and all(dist.get_backend(g) == "nccl"
+                                for g in groups)
+
+
 def all_reduce(x: torch.Tensor, mesh: Mesh, axis: str,
                op: str = "sum") -> torch.Tensor:
     """``x`` reduced (``sum`` or ``max``) over ``axis``, in place, and
     returned. A no-op along an axis of size 1."""
     if mesh.axis_size(axis) > 1:
         red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
-        dist.all_reduce(x, op=red, group=mesh.group(axis))
+        nbytes = x.numel() * x.element_size()
+        with profiling.span("comm.all_reduce", axis=axis, bytes=nbytes):
+            dist.all_reduce(x, op=red, group=mesh.group(axis))
+        _counts["calls"] += 1
+        _counts["bytes"] += nbytes
     return x
 
 

@@ -10,7 +10,12 @@ Axes:
     output and FFN output are partial sums that one ``all_reduce`` completes
     (:class:`TensorParallel`). Every compressed-cache leaf is split on its
     kv-head axis: each rank prefills, packs and attends its own kv heads
-    with the same kernels at ``num_kv_heads / model``.
+    with the same kernels at ``num_kv_heads / model``. In a mixture of
+    experts (a ``router`` among the layer weights) the ``model`` axis splits
+    the experts instead of their hidden dim: each rank keeps whole experts
+    (``wg``/``wu``/``wd`` [L, NE, ...] on their expert axis) and the router
+    whole, so that attention runs tensor parallel and the experts expert
+    parallel on the same ranks.
 
 A spec is a tuple naming, per dimension of a leaf, the mesh axis it is split
 over (None: whole), as ``jax.sharding.PartitionSpec`` does. Where JAX places
@@ -53,6 +58,10 @@ def param_pspecs(params: dict) -> dict:
         },
         "final_norm": (None,),
     }
+    if "router" in params.get("layers", {}):   # experts [L, NE, ...]
+        specs["layers"].update(router=(None, None, None),
+                               **{w: (None, "model", None, None)
+                                  for w in ("wg", "wu", "wd")})
     if "lm_head" in params:
         specs["lm_head"] = (None, "model")
     return specs
@@ -117,19 +126,24 @@ def shard_cache(mesh: Mesh, cache, stacked: bool = True):
 def local_config(cfg: ModelConfig, mesh: Mesh) -> ModelConfig:
     """The model as one rank of ``model`` runs it: its share of the query
     and kv heads and of the FFN hidden dim (the vocabulary stays whole: the
-    logits are gathered). Raises unless each divides evenly."""
+    logits are gathered). A mixture of experts (``num_experts``) keeps its
+    experts' hidden dim, its expert count and its routing: the rank holds
+    ``num_experts / model`` whole experts. Raises unless each divides
+    evenly."""
     m = mesh.axis_size("model")
-    sizes = dict(num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
-                 intermediate_size=cfg.intermediate_size)
+    moe = hasattr(cfg, "num_experts")
+    sizes = dict(num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads)
+    sizes["num_experts" if moe else "intermediate_size"] = (
+        cfg.num_experts if moe else cfg.intermediate_size)
     if not cfg.tie_word_embeddings:  # lm_head is split on the vocabulary
         sizes["vocab_size"] = cfg.vocab_size
     for name, n in sizes.items():
         if n % m:
             raise ValueError(f"{name} {n} does not split evenly over "
                              f"model={m}")
-    return dataclasses.replace(cfg, num_heads=cfg.num_heads // m,
-                               num_kv_heads=cfg.num_kv_heads // m,
-                               intermediate_size=cfg.intermediate_size // m)
+    return dataclasses.replace(
+        cfg, num_heads=cfg.num_heads // m, num_kv_heads=cfg.num_kv_heads // m,
+        intermediate_size=cfg.intermediate_size // (1 if moe else m))
 
 
 class TensorParallel:

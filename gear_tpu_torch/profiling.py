@@ -17,7 +17,11 @@ The span names, each at the function it times: ``engine.decode_step``
 (attributes ``step``, ``batch``; the root of a step's spans),
 ``engine.prefill`` (``batch``, ``bucket``), ``llama.layer`` (``layer``),
 ``cache.append`` (``resid_len``), ``cache.flush`` (``comp_len``),
-``llama.raw_append``, ``decode.attend_fused``, ``flash.raw_attend_flash``.
+``llama.raw_append``, ``decode.attend_fused``, ``flash.raw_attend_flash``,
+``moe.block`` (``rows``, ``experts_local``; ``models.mixtral``) and
+``comm.all_reduce`` (``axis``, ``bytes``; ``parallel.distributed``). A
+decode step replayed from a CUDA graph runs no Python inside it and
+records its root span alone.
 
 Beside them: a timer that reads CUDA events for work on the card and the
 host clock for work on the CPU, and the H100's published peaks.

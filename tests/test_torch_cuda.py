@@ -976,6 +976,49 @@ def test_graph_decode_matches_eager(cuda, mode):
     assert counts[name] == 2 * cfg.num_layers * 140   # engine and reference
 
 
+@pytest.mark.parametrize("mode", ["fused", "raw"])
+def test_mixtral_graph_decode_matches_eager(cuda, mode):
+    """The engine over a small Mixtral on one card (4 experts, top 2,
+    GEAR int4 or raw): 70 greedy steps replayed from a graph against
+    ``mixtral.forward_decode`` run eagerly, tokens and logits bit-equal;
+    one capture, a replay for every step that neither flushes nor comes
+    before the capture."""
+    from gear_tpu_torch.models import mixtral
+
+    cfg = mixtral.MixtralConfig.tiny(hidden_size=128, num_heads=4,
+                                     num_kv_heads=2, head_dim=32,
+                                     num_experts=4)
+    params = mixtral.init_params(cfg, seed=2, device=cuda)
+    comp = CompressionConfig(num_layers=cfg.num_layers,
+                             compress_method="GEAR", quantize_bit=4,
+                             group_size=16, rank=2, prefill_rank=4, loop=2,
+                             left=0.05)
+    eng = InferenceEngine(cfg, params, comp,
+                          EngineConfig(max_len=192, mode=mode), batch_size=2)
+    init = _site_inits(cuda)
+    tokens, mask = eng.left_pad([list(range(3, 113)), list(range(40, 70))],
+                                0, 112)
+    logits, caches = eng.prefill(tokens, mask, init=init)
+    cur = cur_ref = logits[:, -1].argmax(-1)
+    prompt_len = mask.sum(1).to(torch.int32)
+    pad = (112 - prompt_len).to(torch.int32)
+    ref = type(caches)(**{k: v.clone() if torch.is_tensor(v) else v
+                          for k, v in vars(caches).items()})
+    for j in range(70):
+        pos = prompt_len + j
+        cur, lg, caches = eng.decode_step(caches, cur, pos, pad, step=j,
+                                          init=init)
+        lg_ref, ref = mixtral.forward_decode(
+            params, cfg, cur_ref, pos, ref, spec=eng.spec,
+            compress=mode == "fused", pad_start=pad, init=init, step=j)
+        cur_ref = lg_ref.argmax(-1)
+        assert torch.equal(cur, cur_ref), j
+        assert torch.equal(lg, lg_ref), j
+    flushes = 4 if mode == "fused" else 0
+    assert eng.graph_captures == 1
+    assert eng.graph_replays == 70 - flushes - 2
+
+
 @pytest.mark.parametrize("comp_len,resid_len,window", [
     (512, 63, None), (576, 1, None), (576, 63, 300), (576, 1, 300)],
     ids=["before_flush", "after_flush", "before_flush_window",
@@ -1046,3 +1089,26 @@ def test_flash_kernel_reads_device_lengths(cuda, length, window):
                               lens=lens)
     assert TF.flash_decode.launches == before + 1
     assert torch.equal(got, want)
+
+
+def test_sharded_mixtral_graph_over_nccl(cuda, tmp_path):
+    """A TP/EP 2 Mixtral on two cards over nccl, fused (GEAR int4, eight
+    flushes) and raw: each rank's replayed steps give the eager step's
+    tokens and logits bit for bit; one capture, a replay for every step
+    that neither flushes nor comes before the capture, and the replays'
+    collectives counted as the eager steps' (two all-reduces a layer and
+    the logits' gather a step)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices: a card per rank")
+    from test_torch_mixtral_engine import _spawn
+
+    for res in _spawn(tmp_path, "nccl_graph", 2):
+        assert res["capturable"]
+        for mode in ("fused", "raw"):
+            r = res[mode]
+            assert r["tokens_equal"] and r["logits_equal"], (mode, r)
+            assert r["captures"] == 1
+            assert r["replays"] == 140 - r["flushes"] - 2
+            assert r["eager"] == r["flushes"] + 1
+            # engine and eager reference: 140 steps each
+            assert r["counts"]["calls"] == 2 * 140 * (2 * r["layers"] + 1)
