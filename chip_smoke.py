@@ -14,7 +14,10 @@ Phases, each printing lines of its own:
      by the block mean, float32; a serving admission: 32 rows of 3008
      tokens, cleaned likewise): words, scales and minima must be
      bit-equal; and in the profiler's trace of the GEARL prefill's K route
-     no kernel may run before the channel pack (no copy of K);
+     no kernel may run before the channel pack (no copy of K); then the
+     flush kernel against its plain version at the benchmark's two GEAR
+     shapes (Mistral-7B int4 at batch 16, a Mixtral-8x7B rank's 2 kv heads
+     at int2), timed;
   3. the decode kernel against the plain ``cache.attend`` on full-width
      caches built by the port's own prefill + append across a flush: GEARL
      (bits 2/4/8, GQA 32/8 heads, left padding, a sliding window that cuts
@@ -333,6 +336,94 @@ def pack_cases(torch, timer, x, xk, bits, g, note):
     return rows
 
 
+# (row of the kernels' record, spec of a layer's cache, compressed length
+# before the flush): the flush at the shapes the two GEAR cells of the
+# benchmark give it, Mistral-7B GEAR int4 at batch 16 and a Mixtral-8x7B
+# rank's 2 kv heads at int2
+FLUSH_CASES = (
+    ("flush", dict(batch=16, num_kv_heads=8, head_dim=128, max_len=4608,
+                   bits=4, group=64, rank=2, prefill_rank=4, lowrank_loop=3,
+                   outliers_per_block=162), 4352),
+    ("flush_mixtral", dict(batch=16, num_kv_heads=2, head_dim=128,
+                           max_len=8448, bits=2, group=64, rank=2,
+                           prefill_rank=4, lowrank_loop=3,
+                           outliers_per_block=162), 8192),
+)
+
+
+def flush_bytes(spec) -> int:
+    """Bytes a layer's flush must move: the residual tier read, the block's
+    codes, sidebands, outlier entries and bases written."""
+    b, h, d, g = spec.batch, spec.num_kv_heads, spec.head_dim, spec.group
+    el, r = spec.dtype.itemsize, spec.r_store
+    per = (g * d * el + g * spec.v_words * 4                  # resid, codes
+           + 2 * el * (d + g * spec.v_groups_per_token) / 2   # sidebands
+           + spec.ko_store * (2 + el) + 4 * spec.bnd_lanes    # outliers
+           + r * (d + g) * (1 if spec.base_bits == 8 else el) + 8 * r)
+    return int(2 * b * h * per)
+
+
+def phase_flush(torch, timer, record):
+    """The flush kernel (``kernels.flush.flush``) against its plain version
+    at the benchmark's two GEAR shapes, from one cache with every leaf
+    filled and the same starts, held by the card test's own comparison
+    (``tests/test_torch_flush_kernel.py``: ``compare``): sidebands, outlier
+    indices and boundary tables bit-equal, codes bit-equal away from the
+    plain version's outlier positions, deltas within one bf16 ulp where the
+    codes agree, the low-rank term within 1e-3, nothing outside the block
+    written; then timed (a layer's flush, K and V), with the kernel's
+    shared memory."""
+    import ctypes
+    import importlib.util
+
+    from gear_tpu_torch.kernels import _build
+    from gear_tpu_torch.kernels import flush as TFL
+
+    where = ROOT / "tests" / "test_torch_flush_kernel.py"
+    mod = importlib.util.spec_from_file_location("flush_kernel_checks", where)
+    ft = importlib.util.module_from_spec(mod)
+    mod.loader.exec_module(ft)
+    lib = _build.library()
+    lib.gear_flush_smem_bytes.restype = ctypes.c_int64
+    lib.gear_flush_smem_bytes.argtypes = [ctypes.c_int] * 5
+    p0 = ft.site_p0("cuda")
+
+    for seed, (row, kw, c0) in enumerate(FLUSH_CASES, 7):
+        spec = ft.TC.CacheSpec(**kw)
+        before = ft.full_cache(spec, c0, "cuda", seed)
+        want, got = ft.clone(before), ft.clone(before)
+        TFL.flush_plain(spec, want, p0, None)
+        TFL.flush(spec, got, p0)
+        torch.cuda.synchronize()
+        try:
+            ft.compare(spec, before, want, got, c0)
+        except AssertionError as err:
+            check(False, f"{row}: the kernel against the plain version: "
+                  f"{err!r}")
+        g = spec.group
+        moved = sum(int((getattr(got, f"{x}_codes")[..., c0:c0 + g]
+                         != getattr(want, f"{x}_codes")[..., c0:c0 + g])
+                        .sum()) for x in ("k", "v"))
+        n_words = 2 * spec.batch * spec.num_kv_heads * spec.v_words * g
+        ms = timer(lambda: TFL.flush(spec, got, p0), names=("flush_kernel",))
+        plain_ms = timer(lambda: TFL.flush_plain(spec, want, p0, None),
+                         iters=3)
+        bms, by = bound_ms(flush_bytes(spec), 0)
+        smem = lib.gear_flush_smem_bytes(spec.head_dim, spec.group,
+                                         spec.v_group,
+                                         spec.outliers_per_block,
+                                         spec.ko_store)
+        log(f"flush {row} B={spec.batch} H={spec.num_kv_heads} "
+            f"D={spec.head_dim} g={g} int{spec.bits} "
+            f"ko={spec.outliers_per_block} rank={spec.rank}: words "
+            f"differing {moved} of {n_words} (outlier positions), "
+            f"kernel_ms={ms:.4f} plain_ms={plain_ms:.4f} "
+            f"bound_ms={bms:.5f} ({by}) smem={smem} B")
+        record[row] = dict(max_abs_err=None, ms=ms, plain_ms=plain_ms,
+                           bound_ms=bms, bound_by=by, library_ms=None,
+                           smem_bytes=smem)
+
+
 def k_route_trace(torch):
     """The GEARL prefill's K block route (``cache._compress_k_block_pk``) on
     the model's bf16 K at the Llama-2-7B path's shape, a [B, H, S, D] view
@@ -383,6 +474,8 @@ MAIN_PATH_KERNELS = (
     ("B4 Mixtral-8x7B", "flash_split_kernel<4>"),
     ("B3 Mixtral-8x7B", "token_kernel<float,2,1>"),
     ("B2 Mixtral-8x7B", "channel_kernel<float,2>"),
+    ("flush Mistral-7B", "flush_kernel<4,1,0>"),
+    ("flush Mixtral-8x7B", "flush_kernel<2,1,0>"),
     ("B1 eval", "decode_split_kernel<4,2,0,0>"),
     ("B3 eval", "token_kernel<bf16,4,1>"),
     ("B4 eval", "flash_split_kernel<2>"),
@@ -2845,6 +2938,7 @@ def main() -> int:
                                       num_layers=EARLIER_DEPTH)
     phases = {
         "pack": lambda: phase_pack(torch, timer, record),
+        "flush": lambda: phase_flush(torch, timer, record),
         "decode": lambda: phase_decode(torch, timer, record),
         "flash": lambda: phase_flash(torch, timer, record),
         # the Mistral-7B path (GQA, window 4096): the full GEAR
@@ -2962,6 +3056,12 @@ def main() -> int:
         ("decode_attention_tp", "decode_attention",
          "gear_tpu_torch/csrc/decode.cu", "gear_tpu/kernels/decode.py:132",
          "tp", "fused"),
+        ("flush", "flush", "gear_tpu_torch/csrc/flush.cu",
+         "none: gear_tpu/cache.py:796 _flush is jitted XLA", "mistral",
+         "fused"),
+        ("flush_mixtral", "flush", "gear_tpu_torch/csrc/flush.cu",
+         "none: gear_tpu/cache.py:796 _flush is jitted XLA", "mixtral",
+         "fused"),
         ("decode_attention_tp_mistral", "decode_attention",
          "gear_tpu_torch/csrc/decode.cu", "gear_tpu/kernels/decode.py:132",
          "tp_mistral", "fused"),

@@ -730,48 +730,21 @@ def prefill(spec: CacheSpec, k: torch.Tensor, v: torch.Tensor, *,
 def _flush(spec: CacheSpec, cache: LayerCache, p0: P0Fn | None,
            generator: torch.Generator | None,
            use_lowrank: bool = True) -> None:
-    """Quantize the full residual tier into the packed prefix, in place
-    (plain path on either device, as in the reference)."""
-    with profiling.span("cache.flush", comp_len=cache.comp_len):
+    """Quantize the full residual tier into the packed prefix, in place:
+    one launch of the flush kernel on the card, the plain path on the CPU
+    (``kernels.flush.route``, which also labels the span)."""
+    from .kernels import flush as flushk
+
+    route = flushk.route(cache.k_resid.device)
+    with profiling.span("cache.flush", comp_len=cache.comp_len, route=route):
         g = spec.group
         c0 = cache.comp_len
         if c0 + g > spec.max_len:
             raise ValueError(
                 f"compressed cache full: flushing {g} tokens at comp_len {c0} "
                 f"exceeds max_len {spec.max_len}")
-        kb = cache.k_resid.float()
-        vb = cache.v_resid.float()
-        k_pack, k_scale, k_mn, ko_i, ko_v, ko_b = _compress_k_block(spec, kb)
-        v_pack, v_scale, v_mn, vo_i, vo_v, vo_b = _compress_v_block(spec, vb)
-        blk = c0 // g
-        cache.k_codes[:, :, :, c0:c0 + g] = k_pack
-        cache.k_scale[:, :, blk] = k_scale[:, :, 0]
-        cache.k_mn[:, :, blk] = k_mn[:, :, 0]
-        cache.v_codes[:, :, :, c0:c0 + g] = v_pack
-        cache.v_scale[:, :, :, c0:c0 + g] = v_scale
-        cache.v_mn[:, :, :, c0:c0 + g] = v_mn
-        if spec.outliers_per_block:
-            cache.k_out_idx[:, :, blk] = ko_i[:, :, 0]
-            cache.k_out_val[:, :, blk] = ko_v[:, :, 0]
-            cache.v_out_idx[:, :, blk] = vo_i[:, :, 0]
-            cache.v_out_val[:, :, blk] = vo_v[:, :, 0]
-            cache.k_out_bnd[:, :, blk] = ko_b[:, :, 0]
-            cache.v_out_bnd[:, :, blk] = vo_b[:, :, 0]
-        if use_lowrank and max(spec.rank, spec.rank_v_eff) > 0:
-            k_hat = _dequant_k_block(spec, k_pack, k_scale, k_mn, ko_i, ko_v)
-            v_hat = _dequant_v_block(spec, v_pack, v_scale, v_mn, vo_i, vo_v)
-            kp, kqt, kps, kqs = _error_bases(spec, kb, k_hat, spec.rank, "k",
-                                             p0, generator)
-            vp, vqt, vps, vqs = _error_bases(spec, vb, v_hat, spec.rank_v_eff,
-                                             "v", p0, generator)
-            cache.kpt[:, :, blk] = kp.transpose(-1, -2)
-            cache.kqt[:, :, :, c0:c0 + g] = kqt
-            cache.vpt[:, :, blk] = vp.transpose(-1, -2)
-            cache.vqt[:, :, :, c0:c0 + g] = vqt
-            cache.kpt_scale[:, :, blk] = kps
-            cache.kqt_scale[:, :, :, blk] = kqs
-            cache.vpt_scale[:, :, blk] = vps
-            cache.vqt_scale[:, :, :, blk] = vqs
+        run = flushk.flush if route == "kernel" else flushk.flush_plain
+        run(spec, cache, p0, generator, use_lowrank)
         cache.comp_len = c0 + g
         cache.resid_len = 0
 

@@ -6,17 +6,10 @@
 // Both emit packed int32 words plus float32 scale/min in one read of the
 // block, so the int32 code tensor never reaches device memory.
 //
-// Byte-strided layout (gear_tpu/core/quant.py::pack_codes_bytestrided):
-// word w of a row holds bytes 4w..4w+3 little-endian; byte c holds the
-// codes of channels c + m * D / vpb at bit m * bits (vpb = 8 / bits).
-//
-// Bit-exactness with the plain version and with gear_tpu: the step is
-// (max - min) times the float32 reciprocal of the top code (what the JAX
-// package computes under jit), the code is rint of the IEEE quotient
-// (x - min) / step (no --use_fast_math; rintf rounds half to even like
-// jnp.round and torch.round, not roundf), clipped after rounding, with the
-// same `scale == 0 -> 1` guard for constant groups. bf16 input widens to
-// float32 exactly, so it packs to the same words and sidebands.
+// The step, the code and the byte-strided layout are quant_common.cuh's,
+// which flush.cu shares: bit-exact with the plain version and with
+// gear_tpu. bf16 input widens to float32 exactly, so it packs to the same
+// words and sidebands.
 //
 // Bound on the card: bytes. Each element is read once (4 bytes as float32,
 // 2 as bf16) and written back as bits/32 of a word, with ~10 operations per
@@ -50,6 +43,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "quant_common.cuh"
+
 namespace {
 
 constexpr int kTokWarps = 8;   // the token kernel's block: 8 warps
@@ -62,15 +57,15 @@ __host__ __device__ constexpr int tok_rows() {
   return 8 / static_cast<int>(sizeof(T));
 }
 
-// The code of x - mn, rint((x - mn) / divisor) clipped to [0, levels],
-// without a division per element, for both kernels. The step's
-// reciprocal (rcp.approx, within 2 ulp for a step far from the ends of the
-// float range; nan otherwise) times x - mn lies within 6e-5 of the IEEE
-// quotient (which is at most levels (1 + 2^-21): the step is (max - min)
-// / levels up to two roundings), so it rounds to the same integer unless
-// it sits within 1e-3 of a half-integer; there, and for a nan, the IEEE
-// quotient decides: a branch almost no element takes. Adding 1.5 * 2^23
-// rounds half to even, as rintf does, and leaves the code in the low byte.
+// quant_code(x - mn, divisor, levels) without a division per element, for
+// both kernels. The step's reciprocal (rcp.approx, within 2 ulp for a step
+// far from the ends of the float range; nan otherwise) times x - mn lies
+// within 6e-5 of the IEEE quotient (which is at most levels (1 + 2^-21):
+// the step is (max - min) / levels up to two roundings), so it rounds to
+// the same integer unless it sits within 1e-3 of a half-integer; there, and
+// for a nan, the IEEE quotient decides: a branch almost no element takes.
+// Adding 1.5 * 2^23 rounds half to even, as rintf does, and leaves the code
+// in the low byte.
 // With the division per element instead, the token kernel ran 30-37%
 // slower on the H100 (PERF.md); tests/test_torch_cuda.py holds both
 // kernels to the IEEE quotient at and next to half-integers.
@@ -85,10 +80,8 @@ __device__ __forceinline__ uint32_t code_of(float num, float safe, float inv,
                                             float levels) {
   const float y = num * inv;
   const float m = y + 12582912.0f;
-  if (__builtin_expect(!(fabsf(y - (m - 12582912.0f)) < 0.499f), 0)) {
-    const float q = rintf(__fdiv_rn(num, safe));
-    return static_cast<uint32_t>(fminf(fmaxf(q, 0.0f), levels));
-  }
+  if (__builtin_expect(!(fabsf(y - (m - 12582912.0f)) < 0.499f), 0))
+    return quant_code(num, safe, levels);
   return __float_as_uint(m) & 0xFFu;
 }
 
@@ -140,8 +133,7 @@ token_kernel(const T* __restrict__ x, int32_t* __restrict__ words,
              float* __restrict__ scale_out, float* __restrict__ mn_out,
              int64_t m, int d, int v_group) {
   constexpr int VPB = 8 / BITS;
-  constexpr float kLevels = static_cast<float>((1 << BITS) - 1);
-  const float inv_levels = 1.0f / kLevels;
+  constexpr float kLevels = quant_levels<BITS>();
   const unsigned full = 0xFFFFFFFFu;
   const int lane = threadIdx.x & 31;
   const bool active = 4 * lane < d;
@@ -271,8 +263,8 @@ token_kernel(const T* __restrict__ x, int32_t* __restrict__ words,
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         if (i == 0 || !LANE_GROUPS) {
-          sc[i] = (hi[i] - lo[i]) * inv_levels;
-          safe[i] = sc[i] == 0.0f ? 1.0f : sc[i];
+          sc[i] = quant_step<BITS>(lo[i], hi[i]);
+          safe[i] = quant_divisor(sc[i]);
           inv[i] = fast_rcp(safe[i]);
         } else {
           sc[i] = sc[0];
@@ -284,7 +276,7 @@ token_kernel(const T* __restrict__ x, int32_t* __restrict__ words,
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         part |= code_of(v[r][i] - lo[i], safe[i], inv[i], kLevels)
-                << (8 * i + field * BITS);
+                << (8 * i + field_bit<BITS>(field));
         if (live && active && opens[i]) {
           scale_out[row * ngv + grp[i]] = sc[i];
           mn_out[row * ngv + grp[i]] = lo[i];
@@ -335,10 +327,9 @@ channel_kernel(const T* __restrict__ x, int32_t* __restrict__ words,
                int64_t s_t, int n_grp, int group, int d) {
   constexpr int NQ = 8 / BITS;   // fields of a word: one quad each
   constexpr int RREG = BITS;     // row steps kept in registers: 32 floats
-  constexpr float kLevels = static_cast<float>((1 << BITS) - 1);
+  constexpr float kLevels = quant_levels<BITS>();
   using Raw = typename Quad<T>::Raw;
   extern __shared__ float smem[];
-  const float inv_levels = 1.0f / kLevels;
   const int wd = d * BITS / 32, stride = d / NQ;
   const int wc = chan_chunk_words(wd);
   const int nch = (wd + wc - 1) / wc;
@@ -446,8 +437,8 @@ channel_kernel(const T* __restrict__ x, int32_t* __restrict__ words,
         a = fminf(a, plo[s * cw + lc]);
         b = fmaxf(b, phi[s * cw + lc]);
       }
-      const float sc = (b - a) * inv_levels;
-      const float safe = sc == 0.0f ? 1.0f : sc;
+      const float sc = quant_step<BITS>(a, b);
+      const float safe = quant_divisor(sc);
       fmn[lc] = a;
       fsafe[lc] = safe;
       finv[lc] = fast_rcp(safe);
@@ -478,7 +469,7 @@ channel_kernel(const T* __restrict__ x, int32_t* __restrict__ words,
             // the divisor is read only where the reciprocal cannot decide
             const uint32_t code = code_of(v[k] - mn[f][k], fsafe[at + k],
                                           inv[f][k], kLevels);
-            word |= code << (8 * k + f * BITS);
+            word |= code << (8 * k + field_bit<BITS>(f));
           }
         }
         words[(blk * group + row) * wd + w] = static_cast<int32_t>(word);

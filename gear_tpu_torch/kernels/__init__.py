@@ -2,12 +2,13 @@
 
 
 def _wrappers() -> dict:
-    from . import decode, flash, pack
+    from . import decode, flash, flush, pack
 
     return {
         "decode_attention": decode.decode_attention,
         "decode_attention_paged": decode.decode_attention_paged,
         "flash_decode": flash.flash_decode,
+        "flush": flush.flush,
         "quant_pack_channels": pack.quant_pack_channels,
         "quant_pack_tokens": pack.quant_pack_tokens,
     }

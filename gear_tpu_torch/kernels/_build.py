@@ -29,11 +29,13 @@ DECODE_BITS = (2, 4, 8)
 # (source, extra flags, object name): decode.cu holds 8 instantiations per
 # code width and form (dense cache, page pool) and takes the longest, so each
 # width and form is a unit of its own
-UNITS = (("pack.cu", (), "pack.o"), ("flash.cu", (), "flash.o")) + tuple(
+UNITS = (("pack.cu", (), "pack.o"), ("flash.cu", (), "flash.o"),
+         ("flush.cu", (), "flush.o")) + tuple(
     ("decode.cu", (f"-DGEAR_DECODE_BITS={b}", f"-DGEAR_DECODE_PAGED={p}"),
      f"decode{'_paged' if p else ''}_b{b}.o")
     for b in DECODE_BITS for p in (0, 1))
-FILES = ("pack.cu", "decode.cu", "flash.cu", "attn_common.cuh")
+FILES = ("pack.cu", "decode.cu", "flash.cu", "flush.cu", "attn_common.cuh",
+         "quant_common.cuh")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -50,6 +52,7 @@ SIGNATURES = {
     **{f"gear_decode_attention{form}_b{b}": [_P] * 29 + [_I] * 20 + [_P]
        for b in DECODE_BITS for form in ("", "_paged")},
     "gear_flash_decode": [_P] * 8 + [_I] * 8 + [_P],
+    "gear_flush": [_P] * 24 + [_I] * 16 + [_P],
 }
 
 
@@ -141,8 +144,9 @@ def ptxas_usage(log: str) -> dict[str, tuple[int, int, int]]:
     kernel in a build log (``ptxas -v``), by name with its template
     arguments, e.g. ``decode_split_kernel<4,1,0,1>`` (bits, GQ, int8 bases,
     paged), ``flash_split_kernel<4>`` (GQ), ``token_kernel<bf16,4,1>``
-    (input type, bits, groups on lane boundaries) or
-    ``channel_kernel<float,4>`` (input type, bits)."""
+    (input type, bits, groups on lane boundaries),
+    ``channel_kernel<float,4>`` (input type, bits) or
+    ``flush_kernel<4,1,0>`` (bits, outliers, int8 bases)."""
     usage, cur, spill = {}, None, (0, 0)
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)

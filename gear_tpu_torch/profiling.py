@@ -16,7 +16,8 @@ its Chrome trace on a track of their own.
 The span names, each at the function it times: ``engine.decode_step``
 (attributes ``step``, ``batch``; the root of a step's spans),
 ``engine.prefill`` (``batch``, ``bucket``), ``llama.layer`` (``layer``),
-``cache.append`` (``resid_len``), ``cache.flush`` (``comp_len``),
+``cache.append`` (``resid_len``), ``cache.flush`` (``comp_len``;
+``route``: ``kernel`` on the card, ``plain`` on the CPU),
 ``llama.raw_append``, ``decode.attend_fused``, ``flash.raw_attend_flash``,
 ``moe.block`` (``rows``, ``experts_local``; ``models.mixtral``) and
 ``comm.all_reduce`` (``axis``, ``bytes``; ``parallel.distributed``). A

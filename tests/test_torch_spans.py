@@ -11,9 +11,11 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from gear_tpu_torch import profiling
+from gear_tpu_torch import cache as TC
+from gear_tpu_torch import kernels, profiling
 from gear_tpu_torch.config import CompressionConfig
 from gear_tpu_torch.engine import EngineConfig, InferenceEngine
+from gear_tpu_torch.kernels import flush as TFL
 from gear_tpu_torch.models import llama, mistral
 
 NAMES = {"engine.decode_step", "engine.prefill", "llama.layer",
@@ -109,11 +111,15 @@ def test_a_decode_step_is_one_root_over_its_layers(mode):
 
 
 def test_a_step_that_fills_the_residual_tier_flushes_under_each_append():
+    """On the CPU each layer's flush takes the plain route: its span says
+    so, and the flush kernel's wrapper launches nothing."""
     dec = Decoder("fused")
     for _ in range(GROUP - 1):
         dec.step()
+    kernels.reset_launch_counts()
     with cpu_profile():
         dec.step()
+    assert kernels.launch_counts()["flush"] == 0
     recs = profiling.spans()
     appends = [i for i, r in enumerate(recs) if r.name == "cache.append"]
     assert len(appends) == dec.eng.cfg.num_layers
@@ -122,10 +128,33 @@ def test_a_step_that_fills_the_residual_tier_flushes_under_each_append():
         assert recs[recs[i].parent].name == "llama.layer"
         kids = children(recs, i)
         assert [recs[k].name for k in kids] == ["cache.flush"]
-        assert recs[kids[0]].attrs == {"comp_len": BUCKET}
+        assert recs[kids[0]].attrs == {"comp_len": BUCKET, "route": "plain"}
     flushes = [r for r in recs if r.name == "cache.flush"]
     assert len(flushes) == dec.eng.cfg.num_layers
     assert dec.caches.comp_len == BUCKET + GROUP
+
+
+@pytest.mark.parametrize("device,route", [("cpu", "plain"),
+                                          ("cuda", "kernel"), ("meta", None)])
+def test_one_test_of_the_device_picks_the_flush_route(device, route):
+    """``cache._flush`` dispatches on, and labels its span with, what
+    ``kernels.flush.route`` returns; a device with neither version raises."""
+    if route is None:
+        with pytest.raises(ValueError):
+            TFL.route(torch.device(device))
+    else:
+        assert TFL.route(torch.device(device)) == route
+
+
+def test_the_flush_kernel_wrapper_refuses_a_cache_off_the_card():
+    spec = TC.CacheSpec(batch=1, num_kv_heads=1, head_dim=32, max_len=64,
+                        group=16, dtype=torch.bfloat16,
+                        sideband_dtype=torch.bfloat16)
+    cache = TC.init_layer_cache(spec)
+    n = TFL.flush.launches
+    with pytest.raises(ValueError):
+        TFL.flush(spec, cache)
+    assert TFL.flush.launches == n
 
 
 def test_a_prompt_pass_is_one_root_over_its_layers():
