@@ -13,12 +13,13 @@ What differs from the JAX package:
     flush) write into the preallocated tensors of the cache it is given and
     return that same object. This takes the place of JAX's purity plus
     buffer donation.
-  * Lengths are host integers. Every row shares ``comp_len`` / ``resid_len``
-    / ``prefill_len`` (scalars in the JAX cache), so keeping them on the
-    host spares each decode step a device-to-host sync; the flush is a
-    Python ``if`` instead of ``lax.cond``. A step that a CUDA graph replays
-    reads a copy of them in device memory instead (:class:`StepLens`,
-    :func:`append_at`); the host integers stay the lengths.
+  * Lengths are host integers, which every row shares (``comp_len`` /
+    ``resid_len`` / ``prefill_len``, scalars in the JAX cache): the flush
+    is a Python ``if`` on them instead of ``lax.cond``, and no step syncs
+    to read them. What a decode step launches reads a copy staged in
+    device memory before it (:class:`StepLens`), so that a CUDA graph
+    replays the launches with each step's; :func:`advance` moves the host
+    integers on after the step.
   * Randomness. The power-iteration init comes from an optional provider
     ``p0(which, shape) -> Tensor`` (``which`` is ``"k"`` or ``"v"``), else
     uniform [0, 1) draws from a ``torch.Generator``.
@@ -40,6 +41,7 @@ import dataclasses
 from dataclasses import dataclass
 from typing import Callable
 
+import numpy as np
 import torch
 
 from . import profiling
@@ -240,23 +242,57 @@ class LayerCache:
             setattr(self, f, getattr(other, f))
 
 
-@dataclass(frozen=True)
 class StepLens:
-    """One decode step's lengths in device memory, for a step whose launches
-    hold no host length, so that a CUDA graph replays them with each step's
-    (``engine.InferenceEngine`` writes them before each step; the cache's
-    host integers stay the lengths, and such a step changes none).
+    """One decode step's lengths in device memory, one buffer of three
+    int64 words (zeros until :meth:`stage` writes them). Every launch of a
+    step reads its lengths here and none holds one, so that a CUDA graph
+    replays the step with each step's.
 
     ``index``: int64 [1], the slot the step's append writes: the residual
     tier's ``resid_len``, or the raw cache's ``length``, before the step.
     ``lens``: int32 [3], ``comp_len``, ``resid_len`` and ``prefill_len``
-    after the append; for the raw cache its ``length`` first.
-    ``window_lo``: int32 [1], the total length after the append less the
-    sliding window: the first position the window keeps.
+    after the append (and its flush); for the raw cache its ``length``
+    first. ``window_lo``: int32 [1], the total length after the append less
+    the sliding window: the first position the window keeps.
     """
-    index: torch.Tensor
-    lens: torch.Tensor
-    window_lo: torch.Tensor
+
+    def __init__(self, device=None):
+        self.meta = torch.zeros(3, dtype=torch.int64, device=device)
+        m32 = self.meta.view(torch.int32)
+        self.index, self.lens, self.window_lo = (self.meta[:1], m32[2:5],
+                                                 m32[5:6])
+
+    @staticmethod
+    def stage(spec: CacheSpec, cache, window: int | None,
+              into: "StepLens | None" = None, *, new: int = 1) -> "StepLens":
+        """The lengths of a step that appends ``new`` tokens (0: attends
+        the cache as it stands) to ``cache``, a :class:`LayerCache` or
+        ``models.llama``'s raw cache, from its host integers, checked here;
+        written into ``into`` (a graph's buffer) or a new buffer on the
+        cache's device in one copy from pinned host memory on the current
+        stream (the caching host allocator keeps the staging block until
+        the copy is done)."""
+        g = spec.group
+        if isinstance(cache, LayerCache):
+            c0, n, pre = cache.comp_len, cache.resid_len, cache.prefill_len
+            lens = ((c0 + g, 0, pre) if new and n + new == g   # a flush
+                    else (c0, n + new, pre))
+            ok = c0 % g == pre % g == 0 and 0 <= pre <= c0 and n + new <= g
+            device = cache.k_resid.device
+        else:
+            n = cache.length
+            lens, ok, device = (n + new, 0, 0), True, cache.k.device
+        if not (ok and 0 <= min(lens[:2]) and lens[0] <= spec.max_len):
+            raise ValueError(f"lengths {lens} after {new} appended token(s) "
+                             f"do not fit a cache of {spec.max_len}")
+        into = StepLens(device) if into is None else into
+        lo = 0 if window is None else lens[0] + lens[1] - window
+        host = torch.empty(3, dtype=torch.int64, pin_memory=into.meta.is_cuda)
+        h = host.numpy()
+        h[0] = n
+        h.view(np.int32)[2:] = (*lens, lo)
+        into.meta.copy_(host, non_blocking=True)
+        return into
 
     def host_view(self, cache):
         """``cache`` (a :class:`LayerCache` or ``models.llama``'s raw cache)
@@ -266,6 +302,19 @@ class StepLens:
             return dataclasses.replace(cache, comp_len=comp, resid_len=resid,
                                        prefill_len=prefill)
         return dataclasses.replace(cache, length=comp)
+
+
+def advance(spec: CacheSpec, caches) -> None:
+    """The host lengths of ``caches`` (compressed or raw) after a decode
+    step's append of one token, and its flush where the residual tier
+    fills: what :meth:`StepLens.stage` staged for the step."""
+    if isinstance(caches, LayerCache):
+        caches.resid_len += 1
+        if caches.resid_len == spec.group:
+            caches.comp_len += spec.group
+            caches.resid_len = 0
+    else:
+        caches.length += 1
 
 
 def init_layer_cache(spec: CacheSpec, device=None) -> LayerCache:
@@ -752,9 +801,12 @@ def _flush(spec: CacheSpec, cache: LayerCache, p0: P0Fn | None,
 def append(spec: CacheSpec, cache: LayerCache, k_new: torch.Tensor,
            v_new: torch.Tensor, *, p0: P0Fn | None = None,
            generator: torch.Generator | None = None,
-           use_lowrank: bool = True) -> LayerCache:
-    """Append one decode step's K/V [B,H,1,D] in place; flush the residual
-    tier into the packed prefix when it fills to ``group`` tokens.
+           use_lowrank: bool = True,
+           index: torch.Tensor | None = None) -> LayerCache:
+    """Append one decode step's K/V [B,H,1,D] in place at the residual
+    tier's slot ``index`` (int64 [1] in device memory, a step's
+    ``StepLens.index``; None: ``resid_len``, the same slot); flush the tier
+    into the packed prefix when the host lengths say it fills.
 
     ``p0`` is asked for the flush's power-iteration inits only when a flush
     happens. Raises ``ValueError`` when a flush would pass ``max_len`` (the
@@ -762,24 +814,14 @@ def append(spec: CacheSpec, cache: LayerCache, k_new: torch.Tensor,
     """
     i = cache.resid_len
     with profiling.span("cache.append", resid_len=i):
-        cache.k_resid[:, :, i] = k_new[:, :, 0]
-        cache.v_resid[:, :, i] = v_new[:, :, 0]
+        if index is None:
+            index = torch.full((1,), i, dtype=torch.int64,
+                               device=cache.k_resid.device)
+        cache.k_resid.index_copy_(2, index, k_new.to(cache.k_resid.dtype))
+        cache.v_resid.index_copy_(2, index, v_new.to(cache.v_resid.dtype))
         cache.resid_len = i + 1
         if cache.resid_len == spec.group:
             _flush(spec, cache, p0, generator, use_lowrank)
-    return cache
-
-
-def append_at(cache: LayerCache, k_new: torch.Tensor, v_new: torch.Tensor,
-              index: torch.Tensor) -> LayerCache:
-    """:func:`append`'s write of one decode step's K/V [B,H,1,D], at the
-    residual tier's slot ``index`` (int64 [1] in device memory), in place.
-    It reads and changes no host length and never flushes: the append of a
-    step that a CUDA graph replays, whose caller keeps the lengths and
-    takes :func:`append` for a step that fills the tier."""
-    with profiling.span("cache.append"):
-        cache.k_resid.index_copy_(2, index, k_new.to(cache.k_resid.dtype))
-        cache.v_resid.index_copy_(2, index, v_new.to(cache.v_resid.dtype))
     return cache
 
 

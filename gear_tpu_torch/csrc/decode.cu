@@ -10,10 +10,10 @@
 // tier, and the comp_len / resid_len / pad_start masks (the wrapper folds a
 // sliding window into pad_start). It computes what
 // gear_tpu_torch/cache.py::attend computes. The lengths every row shares
-// are launch arguments, or read from `lens` in device memory where the
-// caller gives it: the launch then holds no length, so that a CUDA graph
-// replays it with each step's, and comp_len (the argument) only bounds the
-// grid, as in the paged form below.
+// are read from `lens` in device memory: the launch holds no length, so
+// that a CUDA graph replays it with each step's, and the grid is sized
+// from the capacity T; a block whose tiles lie beyond comp_len stores the
+// empty state, which the merge absorbs.
 //
 // Bound on the card: bytes. Per decode step a layer's compressed cache is
 // read once: codes at bits/16 of the bf16 cache, sidebands, bases (half the
@@ -165,12 +165,11 @@ struct Params {
   const int32_t* v_out_bnd;
   float* part_acc;         // [BH, NS, GQ, D]
   float* part_ml;          // [BH, NS, GQ, 2]
-  const int32_t* lens;         // paged: [B, 3] comp, resid, prefill lengths;
-                               // dense: null, or [3] that every row shares
+  const int32_t* lens;         // comp, resid, prefill lengths: paged [B, 3],
+                               // dense [3] that every row shares
   const int32_t* block_table;  // paged: [B, MAXP], entries < 0 unallocated
   int hkv, d, t, nb, r, group, v_group, ko;  // nb: blocks of a sequence
   int out_pad;  // padding entries at the end of segment 0 of every block
-  int comp_len, resid_len, prefill_len;  // dense form without `lens`
   int n_split, tiles_per_split;
   int maxp, pb;  // paged: table width, blocks per page
 };
@@ -433,12 +432,11 @@ decode_split_kernel(Params p) {
   // dense form reads both straight from the kernel's parameters)
   const int NBS = PAGED ? p.pb : p.nb;
   const int TS = PAGED ? p.pb * p.group : p.t;
-  // the row's lengths: its sequence's in the paged form; in the dense form
-  // those in device memory where given, else the launch's
+  // the row's lengths: its sequence's in the paged form, the ones every row
+  // shares in the dense form
   const int32_t* lens = PAGED ? p.lens + seq * 3 : p.lens;
-  const bool dev_lens = PAGED || lens != nullptr;
-  const int comp_len = dev_lens ? lens[0] : p.comp_len;
-  const int resid_len = dev_lens ? lens[1] : p.resid_len;
+  const int comp_len = lens[0];
+  const int resid_len = lens[1];
   const int KO = p.ko, KOH = p.ko / 2;
   const int WD = D * BITS / 32;
   const int NGV = D / p.v_group;
@@ -514,7 +512,7 @@ decode_split_kernel(Params p) {
     const int tile_hi =
         min(ntiles, csplit * p.tiles_per_split + p.tiles_per_split);
     const int n_t = max(0, tile_hi - tile_lo);
-    const int prefill_len = dev_lens ? lens[2] : p.prefill_len;
+    const int prefill_len = lens[2];
 
     // The block's k-th tile: first token, valid tokens (a multiple of the
     // group: comp_len is), live quant blocks [jlo, nbl) (those wholly left
@@ -1185,13 +1183,12 @@ cudaError_t launch_gq(const Params& p, int bh, int gq, size_t smem,
 #define GEAR_DECODE_ENTRY GEAR_CAT(gear_decode_attention_b, GEAR_DECODE_BITS)
 #endif
 
-// One signature for both forms. Dense: block_table is null, maxp and pb 0,
-// and comp_len / resid_len / prefill_len the lengths all rows share, or,
-// where lens ([3] in device memory) is given, the rows' lengths are read
-// there and comp_len is a host bound on theirs that sizes the grid.
-// Paged: t and nb are a sequence's capacity (MAXP * PB * group tokens,
-// MAXP * PB blocks), comp_len a host bound on every row's comp_len,
-// resid_len and prefill_len unused (each row's are in `lens`). smem:
+// One signature for both forms; the lengths are in device memory only, so
+// the launch holds none (n_split and tiles_per_split, planned by the
+// caller, cover every tile the lengths may reach). Dense: block_table is
+// null, maxp and pb 0, lens [3] the comp, resid and prefill lengths all
+// rows share. Paged: t and nb are a sequence's capacity (MAXP * PB * group
+// tokens, MAXP * PB blocks), lens [B, 3] each row's lengths. smem:
 // the shared memory per block that kernels/decode.py planned; it must equal
 // this file's own count (a check that the two stay in step).
 extern "C" int GEAR_DECODE_ENTRY(
@@ -1205,12 +1202,11 @@ extern "C" int GEAR_DECODE_ENTRY(
     const int32_t* v_out_bnd, float* part_acc, float* part_ml, float* out,
     const int32_t* lens, const int32_t* block_table,
     int bh, int hkv, int gq, int d, int t, int nb, int r, int group,
-    int v_group, int base8, int ko, int out_pad, int comp_len, int resid_len,
-    int prefill_len, int n_split, int tiles_per_split, int maxp, int pb,
-    int smem,
+    int v_group, int base8, int ko, int out_pad, int n_split,
+    int tiles_per_split, int maxp, int pb, int smem,
     cudaStream_t stream) {
   if (kTile % group != 0 || d > kTile || d % 8 != 0 || group > kTile ||
-      group % 4 != 0 || ko % 2 != 0 || out_pad < 0 || out_pad > ko)
+      group % 4 != 0 || ko % 2 != 0 || out_pad < 0 || out_pad > ko || !lens)
     return cudaErrorInvalidValue;
   // the stage's 16-byte copies need 16-byte aligned leaves
   const void* leaves[] = {k_codes, k_scale, k_mn, kpt, kqt, v_codes, v_scale,
@@ -1219,7 +1215,7 @@ extern "C" int GEAR_DECODE_ENTRY(
                           v_out_idx, v_out_val, v_out_bnd, k_resid, v_resid};
   for (const void* leaf : leaves)
     if (reinterpret_cast<uintptr_t>(leaf) & 15) return cudaErrorMisalignedAddress;
-  if (kPaged && !(lens && block_table && maxp > 0 && pb > 0 &&
+  if (kPaged && !(block_table && maxp > 0 && pb > 0 &&
                   nb == maxp * pb && bh % hkv == 0))
     return cudaErrorInvalidValue;
   if (base8 && !(kpt_scale && kqt_scale && vpt_scale && vqt_scale))
@@ -1267,9 +1263,6 @@ extern "C" int GEAR_DECODE_ENTRY(
   p.v_group = v_group;
   p.ko = ko;
   p.out_pad = out_pad;
-  p.comp_len = comp_len;
-  p.resid_len = resid_len;
-  p.prefill_len = prefill_len;
   p.n_split = n_split;
   p.tiles_per_split = tiles_per_split;
   constexpr int kBits = GEAR_DECODE_BITS;

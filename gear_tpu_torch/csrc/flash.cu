@@ -4,11 +4,11 @@
 // (reached through flash_decode / raw_attend_flash): q.K^T over bf16
 // K [BH, T, D], the mask pad_start <= t < length, an online softmax with
 // float32 accumulators, p.V, normalised output [BH, GQ, D] f32. It computes
-// what gear_tpu_torch/models/llama.py::raw_attend computes. `length` is a
-// launch argument, or read from `lens` in device memory where the caller
-// gives it (a CUDA graph then replays the launch with each step's length);
-// the argument then only bounds the grid, and a block whose tiles lie past
-// the length stores the empty state, which the merge absorbs.
+// what gear_tpu_torch/models/llama.py::raw_attend computes. `length` is
+// read from `lens` in device memory, so that a CUDA graph replays the
+// launch with each step's; the grid is sized from the capacity T, and a
+// block whose tiles lie past the length stores the empty state, which the
+// merge absorbs.
 //
 // Bound on the card: bytes. K and V rows between pad_start and length are
 // read once, 2 x 2 x D bytes per token and kv head; the arithmetic is
@@ -64,10 +64,10 @@ struct FlashParams {
   const bf16* k;             // [BH, T, D]
   const bf16* v;             // [BH, T, D]
   const int32_t* pad_start;  // [BH]
-  const int32_t* lens;       // null, or [1]: the length in device memory
+  const int32_t* lens;       // [1]: the length in device memory
   float* part_acc;           // [BH, NS, GQ, D]
   float* part_ml;            // [BH, NS, GQ, 2]
-  int d, t, length, n_split, tiles_per_split;
+  int d, t, n_split, tiles_per_split;
 };
 
 size_t flash_smem_bytes(int gq, int d) {
@@ -109,7 +109,7 @@ __global__ void __launch_bounds__(kTile, 3) flash_split_kernel(FlashParams p) {
   const bf16* k_row = p.k + static_cast<size_t>(bh) * T * D;
   const bf16* v_row = p.v + static_cast<size_t>(bh) * T * D;
   const int pad = p.pad_start[bh];
-  const int length = p.lens ? p.lens[0] : p.length;
+  const int length = p.lens[0];
   const int ntiles = (length + kTile - 1) / kTile;
   const int tile_lo = max(split * p.tiles_per_split, pad / kTile);
   const int tile_hi = min(ntiles, split * p.tiles_per_split + p.tiles_per_split);
@@ -223,15 +223,15 @@ cudaError_t launch_flash(const FlashParams& p, int bh, size_t smem,
 
 // smem: the shared memory per block that kernels/flash.py planned; it must
 // equal this file's own count (a check that the two stay in step). lens:
-// null, or the length in device memory, which `length` then bounds.
+// the length in device memory; the splits cover the capacity t.
 extern "C" int gear_flash_decode(const float* q, const void* k, const void* v,
                                  const int32_t* pad_start,
                                  const int32_t* lens, float* part_acc,
                                  float* part_ml, float* out, int bh, int gq,
-                                 int d, int t, int length, int n_split,
+                                 int d, int t, int n_split,
                                  int tiles_per_split, int smem,
                                  cudaStream_t stream) {
-  if (d > kTile || d % 8 != 0 || n_split < 1 || length < 0 || length > t)
+  if (d > kTile || d % 8 != 0 || n_split < 1 || !lens)
     return cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(k) | reinterpret_cast<uintptr_t>(v)) & 15)
     return cudaErrorMisalignedAddress;
@@ -247,7 +247,6 @@ extern "C" int gear_flash_decode(const float* q, const void* k, const void* v,
   p.part_ml = part_ml;
   p.d = d;
   p.t = t;
-  p.length = length;
   p.n_split = n_split;
   p.tiles_per_split = tiles_per_split;
   cudaError_t e;

@@ -10,25 +10,26 @@ end-of-sequence, and once at the end.
 
 CUDA graphs (the jitted step's counterpart on the card). A decode step
 launches some sixty operations a layer, each enqueued by the host, which
-then sets the pace. So on the card a greedy step of the fused or raw mode
-that does not flush, on an engine with no mesh or one over ``nccl``
-(``shard``: each rank captures its share of the step with its collectives
-inside, and all ranks replay in step), is captured once as a CUDA
-graph and replayed: on the second such step in a row over the same cache
-storages and input shapes (the first runs eagerly, so a short generation
-never pays for a capture it cannot use), after one run of the same step on
-a side stream. The graph reads the step's lengths from a small buffer in
-device memory (``cache.StepLens``), which the engine writes from the
-cache's host integers before each replay; the host integers stay the
-lengths, so a flush (run eagerly) or a cache restored in place between
-replays needs nothing from the graph. The engine keeps one graph; a new
-cache or new shapes replace it. Every other step runs eagerly: on the CPU,
-in the other modes, sharded over ``gloo`` (whose collectives pass through
-the host) or over time (``shard_seq``), sampled (its draws would need the
-generator inside the graph) and flushing steps. ``graph_captures``,
-``graph_replays`` and ``eager_steps`` count this rank's steps of each
-kind, and the ``engine.decode_step`` span's ``graph`` attribute names its
-step's.
+then sets the pace. The fused and raw modes' step is one body,
+``llama.forward_decode``, whose launches read the step's lengths from a
+small buffer in device memory (``cache.StepLens``), staged from the
+cache's host integers before the step; the host integers are the cache's
+bookkeeping, moved on after the step (``cache.advance``), so a flush or a
+cache restored in place between steps needs nothing from a graph. So on
+the card a greedy step of those modes that does not flush, on an engine
+with no mesh or one over ``nccl`` (``shard``: each rank captures its share
+of the step with its collectives inside, and all ranks replay in step), is
+captured once as a CUDA graph over static buffers and replayed: on the
+second such step in a row over the same cache storages and input shapes
+(the first runs eagerly, so a short generation never pays for a capture it
+cannot use), after one run of the same body on a side stream. The engine
+keeps one graph; a new cache or new shapes replace it. Every other step
+runs the body eagerly: on the CPU, in the other modes (their own steps),
+sharded over ``gloo`` (whose collectives pass through the host) or over
+time (``shard_seq``), sampled (its draws would need the generator inside
+the graph) and flushing steps. ``graph_captures``, ``graph_replays`` and
+``eager_steps`` count this rank's steps of each kind, and the
+``engine.decode_step`` span's ``graph`` attribute names its step's.
 
 Models: a ``models.llama.ModelConfig`` runs Llama's passes; a
 ``models.mixtral.MixtralConfig`` the same passes with its expert mixture as
@@ -73,7 +74,6 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
-import numpy as np
 import torch
 
 from . import cache as kvcache
@@ -104,10 +104,7 @@ class _StepGraph:
 
     def __init__(self, key, token, position, pad_start, device):
         self.key = key
-        self.meta = torch.zeros(3, dtype=torch.int64, device=device)
-        m32 = self.meta.view(torch.int32)
-        self.lens = kvcache.StepLens(index=self.meta[:1], lens=m32[2:5],
-                                     window_lo=m32[5:6])
+        self.lens = kvcache.StepLens(device)
         self.token = torch.empty(token.shape, dtype=token.dtype,
                                  device=device)
         self.position = torch.empty(position.shape, dtype=position.dtype,
@@ -413,35 +410,44 @@ class InferenceEngine:
             if kind == "capture":
                 return self._capture(key, caches, token, position, pad_start)
             self.eager_steps += 1
-            self._log_begin(prompt=False)
-            mode, tp = self.ecfg.mode, self.tp
-            init = self._inits(init, generator)
-            if self.seq_mesh is not None:
-                if n_tokens is None:
-                    raise ValueError("a sequence-sharded decode step needs "
-                                     "n_tokens")
-                logits, caches = llama.forward_decode_seqsharded(
-                    self.params, self.cfg, token, position, caches,
-                    self.seq_mesh, spec=self.spec, n_tokens=n_tokens,
-                    axis=self.seq_axis, pad_start=pad_start, init=init,
-                    generator=generator, step=step,
-                    use_lowrank=self.ecfg.use_lowrank, tp=tp)
-            elif mode == "h2o":
-                logits, caches = llama.forward_decode_h2o(
-                    self.params, self.cfg, token, position, caches,
-                    hspec=self.hspec, tp=tp)
-            elif mode == "sink":
-                logits, caches = llama.forward_decode_sink(
-                    self.params, self.cfg, token, position, caches,
-                    sspec=self.sspec, tp=tp)
-            else:
-                logits, caches = llama.forward_decode(
-                    self.params, self.cfg, token, position, caches,
-                    spec=self.spec, compress=mode == "fused",
-                    pad_start=pad_start, init=init, generator=generator,
-                    step=step, use_lowrank=self.ecfg.use_lowrank,
-                    ffn=self.ffn, tp=tp)
-            return self._pick(logits, generator), logits, caches
+            return self._step(caches, token, position, pad_start, step=step,
+                              init=init, generator=generator,
+                              n_tokens=n_tokens)
+
+    def _step(self, caches, token, position, pad_start, *, step: int = 0,
+              init=None, generator=None, n_tokens=None, lens=None):
+        """The decode step's body -> (next token, logits, caches): eager,
+        or, with ``lens``, over a graph's buffers to be captured (the host
+        lengths then left to the caller)."""
+        self._log_begin(prompt=False)
+        mode, tp = self.ecfg.mode, self.tp
+        init = self._inits(init, generator)
+        if self.seq_mesh is not None:
+            if n_tokens is None:
+                raise ValueError("a sequence-sharded decode step needs "
+                                 "n_tokens")
+            logits, caches = llama.forward_decode_seqsharded(
+                self.params, self.cfg, token, position, caches,
+                self.seq_mesh, spec=self.spec, n_tokens=n_tokens,
+                axis=self.seq_axis, pad_start=pad_start, init=init,
+                generator=generator, step=step,
+                use_lowrank=self.ecfg.use_lowrank, tp=tp)
+        elif mode == "h2o":
+            logits, caches = llama.forward_decode_h2o(
+                self.params, self.cfg, token, position, caches,
+                hspec=self.hspec, tp=tp)
+        elif mode == "sink":
+            logits, caches = llama.forward_decode_sink(
+                self.params, self.cfg, token, position, caches,
+                sspec=self.sspec, tp=tp)
+        else:
+            logits, caches = llama.forward_decode(
+                self.params, self.cfg, token, position, caches,
+                spec=self.spec, compress=mode == "fused",
+                pad_start=pad_start, init=init, generator=generator,
+                step=step, use_lowrank=self.ecfg.use_lowrank, ffn=self.ffn,
+                tp=tp, lens=lens)
+        return self._pick(logits, generator), logits, caches
 
     # -- CUDA graphs of the decode step -----------------------------------
 
@@ -486,43 +492,14 @@ class InferenceEngine:
 
     def _load(self, g: _StepGraph, caches, token, position, pad_start):
         """Write the step's inputs into ``g``'s buffers on the current
-        stream: its lengths, from the cache's host integers, in one copy
-        from pinned host memory (the caching host allocator keeps the
-        staging block until the copy is done); then the token, the position
+        stream: its lengths (``StepLens.stage``), the token, the position
         and ``pad_start``."""
-        raw = self.ecfg.mode == "raw"
-        n = caches.length if raw else caches.resid_len
-        lens = (n + 1, 0, 0) if raw else (caches.comp_len, n + 1,
-                                          caches.prefill_len)
-        win = self.cfg.sliding_window
-        lo = 0 if win is None else sum(lens[:2]) - win
-        host = torch.empty(3, dtype=torch.int64, pin_memory=g.meta.is_cuda)
-        h = host.numpy()
-        h[0] = n
-        h.view(np.int32)[2:] = (*lens, lo)
-        g.meta.copy_(host, non_blocking=True)
+        kvcache.StepLens.stage(self.spec, caches, self.cfg.sliding_window,
+                               g.lens)
         g.token.copy_(token)
         g.position.copy_(position)
         if pad_start is not None:
             g.pad_start.copy_(pad_start)
-
-    def _static_step(self, g: _StepGraph, caches):
-        """The greedy step over ``g``'s buffers -> (token [B], logits
-        [B, V]); the host lengths are left to :meth:`_advance`."""
-        self._log_begin(prompt=False)
-        logits, _ = llama.forward_decode(
-            self.params, self.cfg, g.token, g.position, caches,
-            spec=self.spec, compress=self.ecfg.mode == "fused",
-            pad_start=g.pad_start, ffn=self.ffn, tp=self.tp, lens=g.lens)
-        return self._pick(logits, None), logits
-
-    def _advance(self, caches) -> None:
-        """The host lengths after a step that read them from device memory
-        (one that does not flush)."""
-        if self.ecfg.mode == "raw":
-            caches.length += 1
-        else:
-            caches.resid_len += 1
 
     def _capture(self, key, caches, token, position, pad_start):
         """Run the step over new static buffers on a side stream, then
@@ -538,8 +515,9 @@ class InferenceEngine:
         cur = torch.cuda.current_stream(self.device)
         side = torch.cuda.Stream(self.device)
         side.wait_stream(cur)
+        args = (caches, g.token, g.position, g.pad_start)
         with torch.cuda.stream(side):
-            nxt, logits = self._static_step(g, caches)
+            nxt, logits, _ = self._step(*args, lens=g.lens)
         cur.wait_stream(side)
         nxt.record_stream(cur)
         logits.record_stream(cur)
@@ -549,7 +527,7 @@ class InferenceEngine:
         mode = "global" if self.mesh is None else "thread_local"
         with torch.cuda.graph(g.graph, stream=side,
                               capture_error_mode=mode):
-            g.out = self._static_step(g, caches)
+            g.out = self._step(*args, lens=g.lens)[:2]
         g.launches = {k: n - before[k]
                       for k, n in kernels.launch_counts().items()
                       if n != before[k]}
@@ -559,7 +537,7 @@ class InferenceEngine:
         distributed.add_collective_counts(
             {k: -n for k, n in g.collectives.items()})
         self._graph = g
-        self._advance(caches)
+        kvcache.advance(self.spec, caches)
         self.graph_captures += 1
         return nxt, logits, caches
 
@@ -568,7 +546,7 @@ class InferenceEngine:
         g.graph.replay()
         kernels.add_launch_counts(g.launches)
         distributed.add_collective_counts(g.collectives)
-        self._advance(caches)
+        kvcache.advance(self.spec, caches)
         self.graph_replays += 1
         nxt, logits = g.out
         return nxt.clone(), logits.clone(), caches

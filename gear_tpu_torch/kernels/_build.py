@@ -49,9 +49,9 @@ SIGNATURES = {
     "gear_quant_pack_tokens": [_P, _I, _P, _P, _P, _I64, _I, _I, _I, _P],
     "gear_quant_pack_channels": [_P, _I, _P, _P, _P, _I64, _I, _I64, _I64,
                                  _I64, _I64, _I, _I, _I, _P],
-    **{f"gear_decode_attention{form}_b{b}": [_P] * 29 + [_I] * 20 + [_P]
+    **{f"gear_decode_attention{form}_b{b}": [_P] * 29 + [_I] * 17 + [_P]
        for b in DECODE_BITS for form in ("", "_paged")},
-    "gear_flash_decode": [_P] * 8 + [_I] * 8 + [_P],
+    "gear_flash_decode": [_P] * 8 + [_I] * 7 + [_P],
     "gear_flush": [_P] * 24 + [_I] * 16 + [_P],
 }
 

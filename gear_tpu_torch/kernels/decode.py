@@ -249,10 +249,9 @@ def decode_attention(q, k_codes, k_scale, k_mn, kpt, kqt, v_codes, v_scale,
                      kpt_scale=None, kqt_scale=None, vqt_scale=None,
                      vpt_scale=None, k_out_idx=None, k_out_val=None,
                      v_out_idx=None, v_out_val=None, k_out_bnd=None,
-                     v_out_bnd=None, out_pad: int = 0,
-                     comp_len: int, resid_len: int, prefill_len: int,
-                     hkv: int, bits: int, group: int, v_group: int,
-                     lens: torch.Tensor | None = None) -> torch.Tensor:
+                     v_out_bnd=None, out_pad: int = 0, lens: torch.Tensor,
+                     hkv: int, bits: int, group: int,
+                     v_group: int) -> torch.Tensor:
     """Launch the decode kernel.
 
     q [BH, GQ, D] f32 with sm_scale folded in (GQ in 1, 2, 4, 8);
@@ -266,13 +265,14 @@ def decode_attention(q, k_codes, k_scale, k_mn, kpt, kqt, v_codes, v_scale,
     k/v_out_bnd int32 [BH, NB, 128]; ``out_pad`` says how many of the KO
     stored entries of every block are padding (idx 0, delta 0, the last of
     token 0's and channel 0's segments, where ``cache._sort_outliers`` puts
-    them): the kernel does not walk them. ``prefill_len``: the tokens of
-    the prefill block, whose quant blocks all hold one P basis (and int8
+    them): the kernel does not walk them. ``lens``: int32 [3] on the
+    device, (comp_len, resid_len, prefill_len) of every row
+    (``cache.StepLens.lens``), read by the kernel only: the launch holds no
+    length, so that a CUDA graph replays it with each step's, and its grid
+    is sized from the capacity T (splits past comp_len store the empty
+    state, which the merge absorbs). ``prefill_len``: the tokens of the
+    prefill block, whose quant blocks all hold one P basis (and int8
     scales): the kernel reads it once per row for the tiles inside it.
-    ``lens``: int32 [3] on the device, (comp_len, resid_len, prefill_len)
-    of every row, read by the kernel; ``comp_len`` is then a host bound on
-    it that sizes the grid, and ``resid_len`` / ``prefill_len`` are not
-    read, so that a CUDA graph replays the launch with new lengths.
     Returns the normalised output [BH, GQ, D] f32.
     """
     bh, gq, d = q.shape
@@ -297,27 +297,20 @@ def decode_attention(q, k_codes, k_scale, k_mn, kpt, kqt, v_codes, v_scale,
         "k_resid": (k_resid, torch.bfloat16, (bh, group, d)),
         "v_resid": (v_resid, torch.bfloat16, (bh, group, d)),
         "pad_start": (pad_start, torch.int32, (bh // hkv,)),
+        "lens": (lens, torch.int32, (3,)),
     })
     if gq not in GQ_SIZES or bh % hkv:
         raise ValueError(f"unsupported GQ={gq} / hkv={hkv}")
-    if lens is not None:
-        check_operands(dev, {"lens": (lens, torch.int32, (3,))})
-        resid_len = prefill_len = 0
-    if not (0 <= comp_len <= t and 0 <= resid_len <= group
-            and comp_len % group == 0 and 0 <= prefill_len <= comp_len
-            and prefill_len % group == 0):
-        raise ValueError(f"bad lengths comp_len={comp_len} resid_len="
-                         f"{resid_len} prefill_len={prefill_len}")
     check_aligned({"k_resid": k_resid, "v_resid": v_resid})
 
     smem = decode_smem_bytes(gq, d, bits, r, group, v_group, ko, base8, False)
-    n_split, per = splits(comp_len, bh, sm_count(dev), blocks_per_sm(smem),
+    n_split, per = splits(t, bh, sm_count(dev), blocks_per_sm(smem),
                           MAX_TILES)
     out = _launch(
         f"gear_decode_attention_b{bits}", q, leaves, k_resid, v_resid,
         pad_start, lens, None,
         (bh, hkv, gq, d, t, nb, r, group, v_group, int(base8), ko, out_pad,
-         comp_len, resid_len, prefill_len, n_split, per, 0, 0, smem),
+         n_split, per, 0, 0, smem),
         n_split)
     decode_attention.launches += 1
     return out
@@ -326,25 +319,18 @@ def decode_attention(q, k_codes, k_scale, k_mn, kpt, kqt, v_codes, v_scale,
 decode_attention.launches = 0
 
 
-def fold_window(pad_start, window: int | None, total_len: int, batch: int,
+def fold_window(pad_start, window_lo: torch.Tensor | None, batch: int,
                 device) -> torch.Tensor:
     """int32 [B] first attended position: ``pad_start`` (zeros if None)
-    raised to ``total_len - window``. Host integers only, so no sync."""
+    raised to ``window_lo`` (int32 [1] in device memory, the total length
+    less the sliding window: ``cache.StepLens.window_lo``; None: no
+    window). Read on the device, so no sync, and a CUDA graph replays the
+    fold with each step's length."""
     if pad_start is None:
         pad = torch.zeros((batch,), dtype=torch.int32, device=device)
     else:
         pad = pad_start.to(device=device, dtype=torch.int32)
-    if window is not None:
-        pad = pad.clamp(min=total_len - window)
-    return pad.contiguous()
-
-
-def fold_window_at(pad_start, window_lo: torch.Tensor | None, batch: int,
-                   device) -> torch.Tensor:
-    """:func:`fold_window` with ``total_len - window`` read on the device:
-    ``window_lo`` int32 [1] (None: no window), so that a CUDA graph replays
-    the fold with each step's length."""
-    pad = fold_window(pad_start, None, 0, batch, device)
+    pad = pad.contiguous()
     return pad if window_lo is None else torch.maximum(pad, window_lo)
 
 
@@ -374,15 +360,15 @@ def attend_fused(spec: kvcache.CacheSpec, cache: kvcache.LayerCache,
                  lens: kvcache.StepLens | None = None) -> torch.Tensor:
     """Drop-in for ``cache.attend``: q [B, Hq, Qn, D] -> [B, Hq, Qn, D].
 
-    CPU tensors take the plain version (``cache.attend``); CUDA tensors go
-    through :func:`decode_attention`. ``window`` (Mistral's sliding window
-    at decode) folds into ``pad_start`` over the compressed prefix:
+    The lengths are those in device memory, ``lens`` (``cache.StepLens``):
+    a decode step's, or, None, staged here from the cache's host integers.
+    CUDA tensors go through :func:`decode_attention`, which reads them
+    there; CPU tensors take the plain version (``cache.attend``) over them
+    read back. ``window`` (Mistral's sliding window at decode) folds into
+    ``pad_start`` over the compressed prefix, on the device:
     ``pad = max(pad_start, comp_len + resid_len - window)``. That needs
     ``window >= group``, so that the residual tier (at most ``group`` of the
-    newest tokens) always lies inside the window. With ``lens`` the lengths
-    are those in device memory, not the cache's host integers: the kernel
-    reads them, its grid sized from the capacity ``max_len``, and the window
-    folds on the device (the CPU reads them back).
+    newest tokens) always lies inside the window.
     """
     with profiling.span("decode.attend_fused"):
         if window is not None and window < spec.group:
@@ -390,23 +376,16 @@ def attend_fused(spec: kvcache.CacheSpec, cache: kvcache.LayerCache,
                 f"window {window} < group {spec.group}: the window is "
                 "masked through pad_start over the compressed prefix only; "
                 "the residual tier (<= group tokens) must fit inside it")
+        lens = lens or kvcache.StepLens.stage(spec, cache, window, new=0)
         if q.device.type == "cpu":
-            if lens is not None:
-                cache = lens.host_view(cache)
-            return kvcache.attend(spec, cache, q, sm_scale=sm_scale,
-                                  pad_start=pad_start, window=window)
+            return kvcache.attend(spec, lens.host_view(cache), q,
+                                  sm_scale=sm_scale, pad_start=pad_start,
+                                  window=window)
         b, hq, qn, d = q.shape
         hkv = spec.num_kv_heads
         qf, gq_n = pad_query(q, hkv, sm_scale)
-        if lens is None:
-            pad = fold_window(pad_start, window, cache.total_len, b, q.device)
-            lengths = dict(comp_len=cache.comp_len, resid_len=cache.resid_len,
-                           prefill_len=cache.prefill_len)
-        else:
-            pad = fold_window_at(pad_start, None if window is None
-                                 else lens.window_lo, b, q.device)
-            lengths = dict(comp_len=spec.max_len, resid_len=0, prefill_len=0,
-                           lens=lens.lens)
+        pad = fold_window(pad_start, None if window is None
+                          else lens.window_lo, b, q.device)
 
         def flat(x):
             return x.reshape(b * hkv, *x.shape[2:])
@@ -426,7 +405,7 @@ def attend_fused(spec: kvcache.CacheSpec, cache: kvcache.LayerCache,
             flat(cache.k_mn), flat(cache.kpt), flat(cache.kqt),
             flat(cache.v_codes), flat(cache.v_scale), flat(cache.v_mn),
             flat(cache.vqt), flat(cache.vpt), flat(cache.k_resid),
-            flat(cache.v_resid), pad, **extra, **lengths, hkv=hkv,
+            flat(cache.v_resid), pad, **extra, lens=lens.lens, hkv=hkv,
             bits=spec.bits, group=spec.group, v_group=spec.v_group)
         out = out.reshape(b, hkv, -1, d)[:, :, :gq_n]
         return out.reshape(b, hq, qn, d).to(q.dtype)
@@ -500,7 +479,7 @@ def decode_attention_paged(lens, pad_start, block_table, q, kpt, k_codes,
         f"gear_decode_attention_paged_b{bits}", q, leaves, k_resid, v_resid,
         pad_start, lens, block_table,
         (bh, hkv, gq, d, t, maxp * pb, r, group, v_group, int(base8), ko,
-         out_pad, max_comp_len, 0, 0, n_split, per, maxp, pb, smem),
+         out_pad, n_split, per, maxp, pb, smem),
         n_split)
     decode_attention_paged.launches += 1
     return out

@@ -432,40 +432,35 @@ def forward_decode(params: dict, cfg: ModelConfig, token: torch.Tensor,
     token/position [B]; ``caches`` is the stacked cache from
     :func:`forward_prefill` and is updated in place and returned, with the
     logits [B, V] f32. ``step`` only labels the init sites; ``ffn(lp, x)``
-    is each layer's feed-forward block. With ``lens`` (``cache.StepLens``)
-    the step takes its lengths from device memory and launches nothing that
-    holds a host length, so that a CUDA graph replays it: it must not flush,
-    and it leaves the host lengths to the caller (``engine.InferenceEngine``).
+    is each layer's feed-forward block. Every launch reads the step's
+    lengths from ``lens`` (``cache.StepLens``), so that a CUDA graph
+    replays the step; the append flushes where the host lengths say the
+    tier fills. Given ``lens``, the caller moves the host lengths on after
+    the step (``engine.InferenceEngine``); else the step stages its own and
+    moves them on itself (``cache.advance``).
     """
     h = params["embed"][token].to(cfg.dtype)[:, None]
     cos, sin = rope_cos_sin(position[:, None], cfg.head_dim, cfg.rope_theta)
-    lc = None
+    staged = lens or kvcache.StepLens.stage(spec, caches, cfg.sliding_window)
 
     def mix(i, q, k, v):
-        nonlocal lc
         lc = caches.layer(i)
         if not compress:
-            if lens is None:
-                raw_append(spec, lc, k, v)
-            else:
-                raw_append_at(lc, k, v, lens.index)
+            raw_append(spec, lc, k, v, index=staged.index)
             return flash.raw_attend_flash(spec, lc, q, pad_start=pad_start,
                                           window=cfg.sliding_window,
-                                          lens=lens)
-        if lens is None:
-            p0 = None if init is None else (
-                lambda which, shape, c=lc.comp_len:
-                init(("decode", step, i, which, c), shape))
-            kvcache.append(spec, lc, k, v, p0=p0, generator=generator,
-                           use_lowrank=use_lowrank)
-        else:
-            kvcache.append_at(lc, k, v, lens.index)
+                                          lens=staged)
+        p0 = None if init is None else (
+            lambda which, shape, c=lc.comp_len:
+            init(("decode", step, i, which, c), shape))
+        kvcache.append(spec, lc, k, v, p0=p0, generator=generator,
+                       use_lowrank=use_lowrank, index=staged.index)
         return fused.attend_fused(spec, lc, q, pad_start=pad_start,
-                                  window=cfg.sliding_window, lens=lens)
+                                  window=cfg.sliding_window, lens=staged)
 
     logits = _layers(params, cfg, h, cos, sin, mix, ffn, tp)
-    if lens is None:
-        caches.set_lengths(lc)
+    if staged is not lens:   # its own: the host lengths move on here
+        kvcache.advance(spec, caches)
     return logits[:, 0], caches
 
 
@@ -719,25 +714,20 @@ def raw_prefill(spec: CacheSpec, k: torch.Tensor, v: torch.Tensor):
     return c
 
 
-def raw_append(spec: CacheSpec, c: RawLayerCache, k_new, v_new):
-    """Append [B,H,n,D] in place."""
+def raw_append(spec: CacheSpec, c: RawLayerCache, k_new, v_new, *,
+               index: torch.Tensor | None = None):
+    """Append [B,H,n,D] in place at slots ``index`` (int64 [n] in device
+    memory: a step's ``cache.StepLens.index``; None: from ``length`` on,
+    the same slots)."""
     with profiling.span("llama.raw_append"):
         n = k_new.shape[2]
         if c.length + n > spec.max_len:
             raise ValueError(f"raw cache full at max_len {spec.max_len}")
-        c.k[:, :, c.length:c.length + n] = k_new
-        c.v[:, :, c.length:c.length + n] = v_new
-        c.length += n
-        return c
-
-
-def raw_append_at(c: RawLayerCache, k_new, v_new, index: torch.Tensor):
-    """:func:`raw_append`'s write of one token [B,H,1,D] at slot ``index``
-    (int64 [1] in device memory), in place, reading and changing no host
-    length (see ``cache.append_at``)."""
-    with profiling.span("llama.raw_append"):
+        if index is None:
+            index = torch.arange(c.length, c.length + n, device=c.k.device)
         c.k.index_copy_(2, index, k_new.to(c.k.dtype))
         c.v.index_copy_(2, index, v_new.to(c.v.dtype))
+        c.length += n
         return c
 
 

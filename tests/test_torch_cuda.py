@@ -1019,76 +1019,99 @@ def test_mixtral_graph_decode_matches_eager(cuda, mode):
     assert eng.graph_replays == 70 - flushes - 2
 
 
+# The three benchmark cells' shapes where the decode step launches a kernel
+# (rows, query rows per row, the lengths it attends in a window, the
+# capacity): tiles a split for the length and for the capacity. The grid is
+# sized from the capacity; the same tiles a split keep the split partition,
+# and with it the outputs, as a grid sized from the length would have them.
+CELL_SPLITS = {
+    # mistral7b-gear4-decode-4k: batch 16 x 8 kv heads, int4, GEAR outliers
+    "gear4": (128, 4, 4, range(4352, 4609, 64), 4608, 4),
+    # mixtral8x7b-gear2-tp4-8k, one rank: batch 16 x 2 kv heads, int2
+    "mixtral": (32, 4, 2, range(8192, 8449, 64), 8448, 4),
+}
+
+
 @pytest.mark.parametrize("comp_len,resid_len,window", [
-    (512, 63, None), (576, 1, None), (576, 63, 300), (576, 1, 300)],
+    (512, 63, None), (576, 1, None), (576, 63, 300), (576, 1, 300),
+    (None, None, None)],
     ids=["before_flush", "after_flush", "before_flush_window",
-         "after_flush_window"])
+         "after_flush_window", "cell_splits"])
 def test_decode_kernel_reads_device_lengths(cuda, comp_len, resid_len,
                                             window):
-    """B1 with its lengths in device memory and its grid sized from the
-    capacity, against its launch with host lengths: bit-equal, with the
-    residual tier just before and just after a flush, with and without a
-    window that binds; GEAR's outliers, a prefill of 512 tokens, padding."""
+    """B1 in a decode step: lengths staged in device memory before the
+    step, the append at the slot they name, the kernel's grid sized from
+    the capacity; against the plain ``cache.attend`` over the host lengths,
+    with the residual tier just before and just after a flush, with and
+    without a window that binds; GEAR's outliers, a prefill of 512 tokens,
+    padding. ``cell_splits``: the benchmark cells' tiles a split, the same
+    for each length and for the capacity."""
+    if comp_len is None:
+        for rows, gq, bits, lengths, cap, per in CELL_SPLITS.values():
+            bps = TK.blocks_per_sm(TK.decode_smem_bytes(
+                gq, 128, bits, 4, 64, 64, 256, False, False))
+            for n_tok in (*lengths, cap):
+                assert TK.splits(n_tok, rows, TK.sm_count(cuda), bps,
+                                 TK.MAX_TILES)[1] == per, (rows, n_tok)
+        return
     spec = TC.CacheSpec(batch=2, num_kv_heads=4, head_dim=128, max_len=1024,
                         bits=4, group=64, outliers_per_block=162)
     gen = torch.Generator(device=cuda).manual_seed(12)
-    n = 512 + resid_len + (comp_len - 512)
+    n = comp_len + resid_len
     k = torch.randn((2, 4, n, 128), generator=gen, device=cuda).bfloat16()
     v = torch.randn((2, 4, n, 128), generator=gen, device=cuda).bfloat16()
     cache = TC.prefill(spec, k[:, :, :512], v[:, :, :512], generator=gen)
-    for t in range(512, n):
+    for t in range(512, n - 1):
         TC.append(spec, cache, k[:, :, t:t + 1], v[:, :, t:t + 1],
                   generator=gen)
+    lens = TC.StepLens.stage(spec, cache, window)
+    TC.append(spec, cache, k[:, :, -1:], v[:, :, -1:], generator=gen,
+              index=lens.index)
     assert (cache.comp_len, cache.resid_len) == (comp_len, resid_len)
     q = torch.randn((2, 16, 1, 128), generator=gen, device=cuda)
     pad = torch.tensor([0, 200], dtype=torch.int32, device=cuda)
-    lens = TC.StepLens(
-        index=torch.zeros(1, dtype=torch.int64, device=cuda),
-        lens=torch.tensor([comp_len, resid_len, 512], dtype=torch.int32,
-                          device=cuda),
-        window_lo=torch.tensor([cache.total_len - (window or 0)],
-                               dtype=torch.int32, device=cuda))
-    # one tile a split either way, so that the partial states are the same
-    bps = TK.blocks_per_sm(TK.decode_smem_bytes(4, 128, 4, 4, 64, 64, 256,
-                                                False, False))
-    for n_tok in (comp_len, spec.max_len):
-        assert TK.splits(n_tok, 8, TK.sm_count(cuda), bps, TK.MAX_TILES)[1] \
-            == 1
-    want = TK.attend_fused(spec, cache, q, pad_start=pad, window=window)
     before = TK.decode_attention.launches
     got = TK.attend_fused(spec, cache, q, pad_start=pad, window=window,
                           lens=lens)
     assert TK.decode_attention.launches == before + 1
-    assert torch.equal(got, want)
+    want = TC.attend(spec, cache, q, pad_start=pad, window=window)
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-4)
 
 
 @pytest.mark.parametrize("length,window", [
-    (575, None), (576, None), (129, None), (575, 300), (577, 300)])
+    (575, None), (576, None), (129, None), (575, 300), (577, 300),
+    (None, None)])
 def test_flash_kernel_reads_device_lengths(cuda, length, window):
-    """B4 with its length in device memory and its grid sized from the
-    capacity, against its launch with the host length: bit-equal, with and
-    without a window that binds."""
+    """B4 in a decode step: the length staged in device memory before the
+    step, the append at the slot it names, the kernel's grid sized from the
+    capacity; against the plain ``raw_attend`` over the host length, with
+    and without a window that binds. The last case: the raw cell's
+    (mistral7b-raw-decode-4k: batch 16 x 8 kv heads, GQ 4) tiles a split,
+    the same for each length of its window and for the capacity."""
+    if length is None:
+        for n_tok in (*range(4352, 4609), 4608):
+            assert TK.splits(n_tok, 128, TK.sm_count(cuda),
+                             TF.BLOCKS_PER_SM)[1] == 12, n_tok
+        return
     spec = TC.CacheSpec(batch=2, num_kv_heads=4, head_dim=128, max_len=1024)
     gen = torch.Generator(device=cuda).manual_seed(13)
     k = torch.randn((2, 4, 1024, 128), generator=gen, device=cuda).bfloat16()
     v = torch.randn((2, 4, 1024, 128), generator=gen, device=cuda).bfloat16()
-    c = llama.RawLayerCache(k=k, v=v, length=length)
+    c = llama.RawLayerCache(k=k, v=v, length=length - 1)
+    lens = TC.StepLens.stage(spec, c, window)
+    kn = torch.randn((2, 4, 1, 128), generator=gen, device=cuda).bfloat16()
+    llama.raw_append(spec, c, kn, kn * 0.5, index=lens.index)
     q = torch.randn((2, 16, 1, 128), generator=gen, device=cuda)
     pad = torch.tensor([0, 200], dtype=torch.int32, device=cuda)
-    lens = TC.StepLens(
-        index=torch.zeros(1, dtype=torch.int64, device=cuda),
-        lens=torch.tensor([length, 0, 0], dtype=torch.int32, device=cuda),
-        window_lo=torch.tensor([length - (window or 0)], dtype=torch.int32,
-                               device=cuda))
-    for n_tok in (length, spec.max_len):
-        assert TK.splits(n_tok, 8, TK.sm_count(cuda), TF.BLOCKS_PER_SM)[1] \
-            == 1
-    want = TF.raw_attend_flash(spec, c, q, pad_start=pad, window=window)
     before = TF.flash_decode.launches
     got = TF.raw_attend_flash(spec, c, q, pad_start=pad, window=window,
                               lens=lens)
     assert TF.flash_decode.launches == before + 1
-    assert torch.equal(got, want)
+    # a row with no token to attend (pad past the length): the plain
+    # version's NaN, the kernel's zero
+    want = llama.raw_attend(spec, c, q, pad_start=pad, window=window)
+    torch.testing.assert_close(got, want.nan_to_num(0.0), rtol=1e-3,
+                               atol=1e-4)
 
 
 def test_sharded_mixtral_graph_over_nccl(cuda, tmp_path):

@@ -71,16 +71,21 @@ def test_flash_decode_refuses_cpu_tensors():
     z = torch.zeros(2, 1, 128)
     kv = torch.zeros(2, 64, 128, dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="CUDA"):
-        TF.flash_decode(10, torch.zeros(2, dtype=torch.int32), z, kv, kv)
+        TF.flash_decode(torch.tensor([10], dtype=torch.int32),
+                        torch.zeros(2, dtype=torch.int32), z, kv, kv)
 
 
 def test_window_folds_into_pad_start_exactly():
     """What the wrappers hand the kernels on the card: max(pad, total -
-    window), computed from host lengths."""
+    window), with ``total - window`` read from device memory."""
     from gear_tpu_torch.kernels import decode as TK
 
+    def lo(n):
+        return torch.tensor([n], dtype=torch.int32)
+
     pad = torch.tensor([0, 50, 200], dtype=torch.int32)
-    assert TK.fold_window(pad, 100, 222, 3, "cpu").tolist() == [122, 122, 200]
-    assert TK.fold_window(None, None, 222, 2, "cpu").tolist() == [0, 0]
-    assert TK.fold_window(None, 4096, 222, 2, "cpu").tolist() == [0, 0]
-    assert TK.fold_window(pad, None, 222, 3, "cpu").dtype == torch.int32
+    assert TK.fold_window(pad, lo(222 - 100), 3, "cpu").tolist() == \
+        [122, 122, 200]
+    assert TK.fold_window(None, None, 2, "cpu").tolist() == [0, 0]
+    assert TK.fold_window(None, lo(222 - 4096), 2, "cpu").tolist() == [0, 0]
+    assert TK.fold_window(pad, None, 3, "cpu").dtype == torch.int32

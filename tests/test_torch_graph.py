@@ -1,21 +1,28 @@
-"""The pieces of the port's CUDA-graph decode step that run on the CPU: the
-appends at a device index, the window folded from device memory, the
-engine's rule for which steps a graph replays, its host lengths after a
-step that read them from device memory, and the benchmark's reader of the
-share of replayed steps. The capture and the replay themselves run on the
-card (``tests/test_torch_cuda.py``)."""
+"""The pieces of the port's decode step that run on the CPU: the one
+append, at the slot a step's staged lengths name, the window folded from
+device memory, the engine's rule for which steps a graph replays, its step
+over a graph's static buffers and its host lengths after it, and the
+benchmark's reader of the share of replayed steps. The capture and the
+replay themselves run on the card (``tests/test_torch_cuda.py``)."""
 import dataclasses
+import functools
 
+import jax
+import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
+from gear_tpu import cache as C
+from gear_tpu.models import llama as jllama
 from gear_tpu_torch import cache as TC
-from gear_tpu_torch import kernels, profiling
+from gear_tpu_torch import convert, kernels, profiling
 from gear_tpu_torch.config import CompressionConfig
 from gear_tpu_torch.engine import EngineConfig, InferenceEngine, _StepGraph
 from gear_tpu_torch.kernels import decode as TK
 from gear_tpu_torch.models import llama, mistral
 from portbench import harness
+from test_torch_cache import _append_p0, _fields
 
 GROUP = 16
 BUCKET = 32
@@ -32,62 +39,86 @@ def same(a, b) -> bool:
                else v == getattr(b, k) for k, v in vars(a).items())
 
 
-def index(n: int) -> torch.Tensor:
-    return torch.tensor([n], dtype=torch.int64)
-
-
 @pytest.mark.parametrize("mode", ["fused", "raw"])
 def test_device_index_append_equals_the_slice_append(mode):
-    """40 steps over a cache of 32 prompt tokens, group 16: the device-index
-    append leaves every tensor bit-identical to the slice append, with the
-    flush steps (where the residual tier fills) taking the slice append on
-    both sides."""
-    gen = torch.Generator().manual_seed(5)
-    spec = TC.CacheSpec(batch=2, num_kv_heads=2, head_dim=16, max_len=96,
-                        group=GROUP, outliers_per_block=8)
-    k = torch.randn((2, 2, BUCKET, 16), generator=gen).bfloat16()
-    v = torch.randn((2, 2, BUCKET, 16), generator=gen).bfloat16()
+    """40 steps over a cache of 32 prompt tokens, group 16, carried over
+    from gear_tpu's prefill (``convert``): the one append, writing at the
+    slot that each step's staged lengths name and flushing where the tier
+    fills (twice in fused mode), leaves every tensor and length bit for bit
+    as gear_tpu's ``cache.append`` / ``raw_append`` (dynamic-slice writes)
+    leave them, and the staged lengths are the host lengths after it. The
+    flushes quantize and pack without error bases: their power iterations
+    part in the last float32 bits (``test_torch_cache`` holds them)."""
+    rng = np.random.default_rng(5)
+    kw = dict(batch=2, num_kv_heads=2, head_dim=16, max_len=96, group=GROUP)
+    jspec = C.CacheSpec(**kw, dtype=jnp.float32, sideband_dtype=jnp.float32)
+    spec = TC.CacheSpec(**kw, dtype=torch.float32,
+                        sideband_dtype=torch.float32)
+    k = rng.standard_normal((2, 2, BUCKET, 16)).astype(np.float32)
+    v = rng.standard_normal((2, 2, BUCKET, 16)).astype(np.float32)
     if mode == "fused":
-        ref = TC.prefill(spec, k, v,
-                         generator=torch.Generator().manual_seed(0))
+        jc = jax.jit(functools.partial(C.prefill, jspec))(
+            jnp.asarray(k), jnp.asarray(v), key=jax.random.PRNGKey(0))
+        got = convert.cache_from_numpy(_fields(jc))
+        japp = jax.jit(functools.partial(C.append, jspec),
+                       static_argnames="use_lowrank")
     else:
-        ref = llama.raw_prefill(spec, k, v)
-    got = clone(ref)
+        jc = jllama.raw_prefill(jspec, jnp.asarray(k), jnp.asarray(v))
+        got = llama.raw_prefill(spec, torch.from_numpy(k),
+                                torch.from_numpy(v))
     flushes = 0
     for j in range(40):
-        kn = torch.randn((2, 2, 1, 16), generator=gen).bfloat16()
-        vn = (kn * 0.5).bfloat16()
+        kn = rng.standard_normal((2, 2, 1, 16)).astype(np.float32)
+        vn = (kn * 0.5).astype(np.float32)
+        tk, tv = torch.from_numpy(kn), torch.from_numpy(vn)
+        lens = TC.StepLens.stage(spec, got, None)
         if mode == "raw":
-            llama.raw_append(spec, ref, kn, vn)
-            llama.raw_append_at(got, kn, vn, index(got.length))
-            got.length += 1
-        elif got.resid_len + 1 < spec.group:
-            TC.append(spec, ref, kn, vn)
-            TC.append_at(got, kn, vn, index(got.resid_len))
-            got.resid_len += 1
-        else:
-            flushes += 1
-            for c in (ref, got):
-                TC.append(spec, c, kn, vn,
-                          generator=torch.Generator().manual_seed(j))
-        assert same(got, ref), j
+            jc = jllama.raw_append(jspec, jc, jnp.asarray(kn),
+                                   jnp.asarray(vn))
+            llama.raw_append(spec, got, tk, tv, index=lens.index)
+            assert lens.lens.tolist() == [got.length, 0, 0], j
+            want = {"k": np.asarray(jc.k), "v": np.asarray(jc.v)}
+            assert got.length == int(jc.length), j
+            for f, a in want.items():
+                np.testing.assert_array_equal(getattr(got, f).numpy(), a,
+                                              err_msg=f"{f} {j}")
+            continue
+        key = jax.random.PRNGKey(100 + j)
+        flushes += got.resid_len + 1 == GROUP
+        p0 = _append_p0(key, got.comp_len)
+        jc = japp(jc, jnp.asarray(kn), jnp.asarray(vn), key=key,
+                  use_lowrank=False)
+        TC.append(spec, got, tk, tv, p0=p0, use_lowrank=False,
+                  index=lens.index)
+        assert lens.lens.tolist() == [got.comp_len, got.resid_len,
+                                      got.prefill_len], j
+        want = _fields(jc)
+        for f, a in convert.cache_to_numpy(got).items():
+            np.testing.assert_array_equal(a, want[f], err_msg=f"{f} {j}")
     assert flushes == (2 if mode == "fused" else 0)
 
 
 @pytest.mark.parametrize("pad", [None, [0, 70]], ids=["no_pad", "pad"])
 @pytest.mark.parametrize("total", [10, 99, 100, 101, 170, 222])
 def test_device_window_fold_equals_fold_window(pad, total):
-    """``max(pad_start, total - window)`` from device memory, for totals on
-    both sides of a window of 100, as ``fold_window`` folds it from the
-    host's total."""
+    """``fold_window`` raises ``pad_start`` to the window's first position
+    as a step over a raw cache of ``total - 1`` tokens stages it in device
+    memory: ``max(pad_start, total - window)`` for totals on both sides of
+    a window of 100, and ``pad_start`` itself without a window."""
     window = 100
+    spec = TC.CacheSpec(batch=2, num_kv_heads=1, head_dim=8, max_len=256,
+                        group=GROUP)
+    c = llama.raw_init(spec)
+    c.length = total - 1
+    lens = TC.StepLens.stage(spec, c, window)
     pad_t = None if pad is None else torch.tensor(pad, dtype=torch.int32)
-    lo = torch.tensor([total - window], dtype=torch.int32)
-    got = TK.fold_window_at(pad_t, lo, 2, "cpu")
-    want = TK.fold_window(pad_t, window, total, 2, "cpu")
+    base = pad or [0, 0]
+    got = TK.fold_window(pad_t, lens.window_lo, 2, "cpu")
+    want = torch.tensor([max(p, total - window) for p in base],
+                        dtype=torch.int32)
     assert got.dtype == torch.int32 and torch.equal(got, want)
-    assert torch.equal(TK.fold_window_at(pad_t, None, 2, "cpu"),
-                       TK.fold_window(pad_t, None, total, 2, "cpu"))
+    assert torch.equal(TK.fold_window(pad_t, None, 2, "cpu"),
+                       torch.tensor(base, dtype=torch.int32))
 
 
 def engine(mode="fused", *, window=48, temperature=0.0, max_len=96):
@@ -167,8 +198,9 @@ def test_a_device_length_step_leaves_what_an_eager_step_leaves(mode):
         else:
             static += 1
             eng._load(g, caches, cur, pos, pad)
-            n, lg = eng._static_step(g, caches)
-            eng._advance(caches)
+            n, lg, _ = eng._step(caches, g.token, g.position, g.pad_start,
+                                 lens=g.lens)
+            TC.advance(eng.spec, caches)
         assert torch.equal(n, nr) and torch.equal(lg, lr), j
         assert same(caches, ref), j
         cur, cur_ref = n, nr
