@@ -27,8 +27,8 @@
 // Design: every byte of a tile in flight at once, issued without holding
 // the threads, and the next tile's while this one computes.
 //  * grid (BH rows, 1 + token splits). Split 0 attends the residual tier;
-//    each other block walks its split's tiles of 128 tokens (one thread per
-//    token) below comp_len; tiles and quant blocks wholly left of pad_start
+//    each other block walks its split's tiles of 128 tokens below
+//    comp_len; tiles and quant blocks wholly left of pad_start
 //    are neither copied nor read. A second tiny kernel merges the splits'
 //    (max, sum, acc) states, flash-decoding style.
 //  * Staging: a ring of kStages = 2 stages in shared memory, each holding
@@ -60,14 +60,15 @@
 //    prefill (decode-flushed blocks) keep their own P per block.
 //  * K scores: per quant block the scale folds into q once
 //    (qs = q * scale), and q.mn and q.P_blk are reduced once (int8 bases:
-//    times both scales there), all from the stage; each thread then unpacks
-//    its token's code words from the stage and adds
-//    qs.code + q.mn + (q.P).Q[:, t].
+//    times both scales there), all from the stage; a score is then
+//    qs.code + q.mn + (q.P).Q[:, t]. The products qs.code are the
+//    tensor-core form's MMAs, or in the multiply-add form each thread
+//    unpacks its token's code words from the stage and multiplies.
 //  * PV: p * vscale is formed per token, and sum p * vmn and sum p * Q[:, t]
-//    per block (int8: times both scales) are reduced once, so one thread per
-//    channel accumulates (p * vscale) * code per token plus a few per-tile
-//    terms. V code rows are padded to kTile + 4 words: the 8 words a warp
-//    reads at one token fall in 8 banks.
+//    per block (int8: times both scales) are reduced once, so the products
+//    are (p * vscale) * code per token plus a few per-tile terms: the
+//    tensor-core form's MMAs, or one thread per channel in the
+//    multiply-add form.
 //  * Outliers: the TPU kernel's one-hot dots and running-sum gathers stand
 //    in for a scatter it does not have. The thread of token t (K entries
 //    are sorted by token) or of channel d (V, sorted by channel) sums its
@@ -77,7 +78,8 @@
 //    memory, so that the walk that segments of unequal length make
 //    divergent costs a load and an add a step; at GQ 4 and 8 that buffer
 //    would cost a block an SM, and the walking thread forms its terms
-//    itself (term_buffer below). The padding entries up to the stored
+//    itself (term_buffer below; the tensor-core form walks a segment per
+//    lane for all query rows, below). The padding entries up to the stored
 //    count (idx 0, delta 0) are the last out_pad entries of token 0's /
 //    channel 0's segment (the stable sort keeps them behind that key's real
 //    entries); they are neither formed nor summed.
@@ -87,18 +89,59 @@
 //    time: 24 us at 60 tokens on the Llama path's shapes).
 //  * Shared memory at D = 128, group 64, rank 4, 256 stored outliers: a
 //    stage is 22,656 / 30,976 / 47,616 bytes at int2 / int4 / int8 with bf16
-//    bases; with the prefill's P rows, the outlier terms (GQ <= 2) and the
-//    float32 working buffers (the K side's per-tile sums share their floats
-//    with the V side's) a block takes 55-123 KB (kernels/decode.py::
+//    bases; with the prefill's P rows, the outlier terms (GQ <= 2, the
+//    multiply-add form), the MMAs' B operands (the tensor-core form) and
+//    the float32 working buffers (the K side's per-tile sums share their
+//    floats with the V side's) a block takes 52-123 KB (kernels/decode.py::
 //    decode_smem_bytes counts it, and this file checks the count), three
 //    blocks an SM at int2 / int4 with GQ <= 4, fewer otherwise; min_blocks
 //    holds the registers to that.
 //  * float32 throughout; online softmax with -inf for masked tokens.
-// No tensor-core products: with codes exact in bf16 and q in three bf16
-// pieces, building the mma.sync fragments cost about what the
-// multiply-adds saved at GQ 4, and their operands took the block to two
-// an SM (measured slower on the H100, PERF.md). Later work: one K scale over a
-// KCVT prefill (the TPU kernel's kcvt path).
+//
+// Tensor-core products (mma_form: int2 and int4 codes, GQ >= 2, D 128,
+// group 64, V group 64, rank <= 4; every other launch multiplies on the
+// CUDA cores, one thread per token and per channel). The kernel runs one
+// of two bodies, split_body<..., MMA>; the tensor-core one has its shape's
+// sizes as constants, which holds it to the launch bounds' registers.
+// At GQ 4 a thread of the multiply-add form spends ~6 instructions a code
+// (unpacks, float4 loads of q * scale or p * vscale, fused multiply-adds),
+// and 12 warps an SM hide little of their latency: the kernel ran at ~12%
+// of its byte bound. Here the block is one
+// warpgroup and both products are wgmma (sm_90a) chains, m64 x N x k16,
+// A in registers, B in shared memory, float32 sums in registers:
+//  * Exact as float32: a code below 2^7 is the low mantissa bits of a bf16
+//    of exponent 7, 128 + code; one mask-and-or of a code word makes two of
+//    them, a bf16x2 multiply-add takes the 128 off (code_pair). q * scale
+//    and p * vscale go in as three bf16 pieces, h + m + l = x (split3),
+//    each piece its own column of B, so that the MMA's products are exact
+//    and only its float32 sums round; a thread owns the three columns of a
+//    (token or channel, query row) and adds them.
+//  * K: one chain of 8 MMAs per quant block of the tile: its 64 tokens
+//    are the rows (a thread's pair of rows two adjacent tokens), the 128
+//    channels the contraction in a permuted order: a quad lane reads four
+//    whole words of its two tokens (K code rows padded by 4 words, so the
+//    quad's reads fall in distinct banks), and word W's shifts by field
+//    and byte give the two channels 4W + b and 4W + b + 2 of a bf16x2
+//    register; B, q * scale, is written in that order.
+//  * PV: a chain per d-group of 64 channels (the rows), the tile's tokens
+//    the contraction: a byte permute of two tokens' words gives a
+//    register's two tokens of one channel, and a quad lane's four token
+//    columns of a k-step are four consecutive tokens (one 16-byte read).
+//    The sums run over the tiles, rescaled by the softmax's factor per
+//    column.
+//  * Around them, on the CUDA cores: the folds' q.mn and q.P, and per
+//    (token, row) or (channel, row) the low-rank and outlier terms. A quad
+//    of lanes shares its rows' tokens and channels, so each lane walks one
+//    of the quad's four outlier segments for every query row while a
+//    chain runs: the K terms go to their rows' lanes through p_s, the V
+//    terms stay in per-lane running sums, as do p's sum, p * vmn and the
+//    prefill's sum_t p * Q[r, t], reduced once a block.
+//  * Bound on this card: latency at 12 warps an SM. The MMAs with their
+//    unpacking take ~20% of a block's cycles; the folds (q * scale in
+//    pieces, q.mn, q.P), the per-row terms and the copy issue most of the
+//    rest (PERF.md section 5).
+// Later work: one K scale over a KCVT prefill (the TPU kernel's kcvt
+// path).
 //
 // The paged form (-DGEAR_DECODE_PAGED=1) replaces the TPU kernel
 // gear_tpu/kernels/decode.py::decode_attention_paged (its inner `kernel`,
@@ -251,20 +294,55 @@ __device__ __forceinline__ int out_idx(const int32_t* words, int e, int koh) {
   return static_cast<int>(e < koh ? (w & 0xFFFFu) : (w >> 16));
 }
 
+// The tile's two forms. The tensor-core form takes (BITS, GQ) whose codes
+// lie below 2^7, so that a code is the low bits of a bf16 of exponent 7
+// (int2, int4), and whose two or more query rows fill the MMAs' columns;
+// a launch then takes it when its shape is the one the fragments are laid
+// out for: D 128, quant group 64 (a chain's 64 rows are a quant block's
+// tokens), V group 64 (a PV chain's 64 rows are a d-group's channels), and
+// at most kMmaRanks ranks (its running prefill sums live in registers).
+// Every other launch takes the multiply-add form.
+constexpr int kMmaRanks = 4;
+__host__ __device__ constexpr bool mma_codes(int bits, int gq) {
+  return bits != 8 && gq >= 2;
+}
+__host__ __device__ inline bool mma_form(int bits, int gq, int d, int group,
+                                         int v_group, int r) {
+  return mma_codes(bits, gq) && d == 128 && group == 64 && v_group == 64 &&
+         r <= kMmaRanks;
+}
+// Columns of the MMAs' B: three bf16 pieces of each query row, a thread's
+// rows' pieces in its own columns (mma_col), rounded up to 8.
+__host__ __device__ constexpr int mma_cols(int gq) {
+  return 8 * ((3 * ((gq + 3) / 4) + 1) / 2);
+}
+// Bytes of one k-step (16 rows of K) of a B operand: mma_cols rows of 32.
+__host__ __device__ constexpr int mma_kstep_bytes(int gq) {
+  return mma_cols(gq) * 32;
+}
+// The B operands' region: a chain of 8 k-steps per quant block of a tile
+// (the K scores) or per d-group (PV), the two sides at different times.
+__host__ __device__ inline int mma_bytes(int gq, int nbt, int ngv) {
+  return (nbt > ngv ? nbt : ngv) * 8 * mma_kstep_bytes(gq);
+}
+
 // The ring: kStages stages, each holding every byte one tile needs. Stage
 // k % kStages takes the block's k-th tile; its pages sit in lookup slot
 // k % kStages.
 constexpr int kStages = 2;
-constexpr int kVws = kTile + 4;  // staged V code row (int32): 16-byte rows,
-                                 // and PV's 8 words a warp reads fall in 8 banks
 
-// Byte offsets of the pieces of one stage: [WD][kTile] K code words,
-// [WD][kVws] V code words, [NGV][kTile] V scales and minima, [R][kTile]
+// Byte offsets of the pieces of one stage: [WD][kws] K code words,
+// [WD][vws] V code words, [NGV][kTile] V scales and minima, [R][kTile]
 // kqt and vqt columns, [NBT][D] K scales and minima, [NBT][R][D] kpt and vpt
 // rows, int8 base scales [NBT][R] (kpt, vpt) and [R][NBT] (kqt, vqt),
 // outlier index words [NBT][KO/2], deltas [NBT][KO] and boundary tables
-// [NBT][kBnd] for K and for V. Each piece starts on 16 bytes.
+// [NBT][kBnd] for K and for V. Each piece starts on 16 bytes. A code row is
+// padded by 4 words where the form's reads of a warp would fall in one
+// bank otherwise: the V rows in the multiply-add form (its PV reads 8
+// words of one token), the K rows in the tensor-core form (its quads read
+// 4 words of 8 tokens); the other rows are kTile words.
 struct Stage {
+  int kws, vws;  // K and V code row strides (words)
   int kc, vc, vs, vm, kq, vq, ksc, kmn, kp, vp, kps, vps, kqs, vqs;
   int koi, voi, kov, vov, kob, vob, bytes;
 };
@@ -277,14 +355,16 @@ __host__ __device__ inline int take(int& at, int n) {
 
 __host__ __device__ inline Stage stage_layout(int d, int bits, int r,
                                               int group, int v_group, int ko,
-                                              bool base8) {
+                                              bool base8, bool mma) {
   const int nbt = kTile / group, ngv = d / v_group, wd = d * bits / 32;
   const int bel = base8 ? 1 : 2;
   const int sc = base8 ? nbt * r * 4 : 0;
   Stage s;
+  s.kws = mma ? kTile + 4 : kTile;
+  s.vws = mma ? kTile : kTile + 4;
   int at = 0;
-  s.kc = take(at, wd * kTile * 4);
-  s.vc = take(at, wd * kVws * 4);
+  s.kc = take(at, wd * s.kws * 4);
+  s.vc = take(at, wd * s.vws * 4);
   s.vs = take(at, ngv * kTile * 2);
   s.vm = take(at, ngv * kTile * 2);
   s.kq = take(at, r * kTile * bel);
@@ -311,9 +391,10 @@ __host__ __device__ inline Stage stage_layout(int d, int bits, int r,
 // splits, or the residual tier's K and V rows ([G][D] bf16 each) in split 0.
 __host__ __device__ inline int region_bytes(int d, int bits, int r,
                                             int group, int v_group, int ko,
-                                            bool base8) {
+                                            bool base8, bool mma) {
   const int ring =
-      kStages * stage_layout(d, bits, r, group, v_group, ko, base8).bytes;
+      kStages *
+      stage_layout(d, bits, r, group, v_group, ko, base8, mma).bytes;
   const int resid = 2 * group * d * 2;
   return ring > resid ? ring : resid;
 }
@@ -325,11 +406,13 @@ __host__ __device__ inline int pre_bytes(int d, int r, bool base8) {
 }
 
 // The outlier terms go through shared memory (ot_s) where they cost no
-// block an SM: at GQ <= 2. At GQ 4 and 8 their 8-16 KB would cut the
-// blocks an SM from three to two (on the H100 the Mistral path's GQ 4 ran
-// 13% slower so), and each thread of a token or channel forms the terms of
-// its own segment as it walks it. On the serving run's live pool the
-// buffer takes 16% less time than that walk at GQ 1 (PERF.md).
+// block an SM: at GQ <= 2, in the multiply-add form. At GQ 4 and 8 their
+// 8-16 KB would cut the blocks an SM from three to two (on the H100 the
+// Mistral path's GQ 4 ran 13% slower so), and each thread of a token or
+// channel forms the terms of its own segment as it walks it. On the serving
+// run's live pool the buffer takes 16% less time than that walk at GQ 1
+// (PERF.md). The tensor-core form walks its segments for one query row a
+// thread and takes no buffer.
 __host__ __device__ constexpr bool term_buffer(int gq) { return gq <= 2; }
 
 // Floats of the per-tile sums whose lives do not overlap: q.mn and q.P per
@@ -340,27 +423,30 @@ __host__ __device__ inline int sums_floats(int gq, int nbt, int ngv, int r) {
   return k > v ? k : v;
 }
 
-// Shared memory of one block: the first region, the prefill's P rows, then
-// float32 working buffers, then the page lookups
-// (kernels/decode.py::decode_smem_bytes counts the same).
+// Shared memory of one block: the first region, the prefill's P rows, the
+// MMAs' B operands (tensor-core form), then float32 working buffers, then
+// the page lookups (kernels/decode.py::decode_smem_bytes counts the same).
 size_t split_smem_bytes(int gq, int d, int bits, int r, int group,
                         int v_group, int ko, bool base8, bool paged) {
   const int nbt = kTile / group;
   const int ngv = d / v_group;
+  const bool mma = mma_form(bits, gq, d, group, v_group, r);
   size_t floats = 0;
   floats += gq * d;                 // q_s
-  floats += nbt * gq * d;           // qs_s
-  floats += gq * ngv * kTile;       // pvs_s
+  if (!mma) floats += nbt * gq * d;      // qs_s
+  if (!mma) floats += gq * ngv * kTile;  // pvs_s
   floats += gq * kTile;             // p_s
-  if (term_buffer(gq)) floats += nbt * ko * gq;  // ot_s
+  if (term_buffer(gq) && !mma) floats += nbt * ko * gq;  // ot_s
   floats += sums_floats(gq, nbt, ngv, r);  // qm_s, qp_s | pvm_s, wv_s
   floats += 2 * gq * kWarps;        // red_max, red_sum
   floats += 2 * gq * r;             // qp0_s, wv0_s
   if (base8) floats += 4 * r;       // pre_sc: the prefill's int8 scales
+  if (mma) floats += gq;            // alpha_s
   if (paged) floats += 2 * kStages * nbt;  // lrow_s, loff_s (int32)
   return static_cast<size_t>(
-             region_bytes(d, bits, r, group, v_group, ko, base8)) +
-         pre_bytes(d, r, base8) + 8 * kStages + floats * sizeof(float);
+             region_bytes(d, bits, r, group, v_group, ko, base8, mma)) +
+         pre_bytes(d, r, base8) + (mma ? mma_bytes(gq, nbt, ngv) : 0) +
+         8 * kStages + floats * sizeof(float);
 }
 
 // Blocks per SM that the register budget is held to (65,536 / (128 x n)
@@ -415,9 +501,128 @@ __device__ __forceinline__ void bar_wait(uint32_t bar, int parity) {
   }
 }
 
-template <int BITS, int GQ, bool BASE8, bool PAGED>
-__global__ void __launch_bounds__(kTile, min_blocks(BITS, GQ))
-decode_split_kernel(Params p) {
+// Warpgroup MMAs (wgmma, sm_90a): the block's 128 threads are one
+// warpgroup. A comes from registers, B from shared memory through a
+// descriptor, the float32 sums stay in registers; the products are issued
+// asynchronously and waited for as one group.
+
+// Descriptor of a K-major B in shared memory, no swizzle: core matrices of
+// 8 rows of B's columns by 16 bytes (8 of K), 128 bytes each; the two
+// halves of a k-step's 16 rows of K lie 128 bytes apart (leading byte
+// offset), groups of 8 columns 256 bytes apart (stride byte offset).
+__device__ __forceinline__ uint64_t b_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(128 >> 4) << 16) |
+         (static_cast<uint64_t>(256 >> 4) << 32);
+}
+
+// Byte offset in a chain's B of (k-step ks, row kk of its 16, column n),
+// in the layout b_desc describes; a k-step takes kstep bytes.
+__device__ __forceinline__ int b_off(int kstep, int ks, int kk, int n) {
+  return ks * kstep + (n >> 3) * 256 + (kk >> 3) * 128 + (n & 7) * 16 +
+         (kk & 7) * 2;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// The accumulators change here as far as the compiler knows: after a wait,
+// so that no read of them moves above it.
+template <int N>
+__device__ __forceinline__ void wgmma_touch(float* d) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// Thread writes to shared memory seen by the MMAs' (async proxy) reads.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// d[64 x N] += a[64 x 16] * b[16 x N]: bf16 operands, A as four bf16x2
+// registers a thread, float32 accumulators, N / 2 a thread.
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float* d, const uint32_t* a,
+                                         uint64_t desc);
+
+template <>
+__device__ __forceinline__ void wgmma_rs<16>(float* d, const uint32_t* a,
+                                             uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, "
+      "0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<24>(float* d, const uint32_t* a,
+                                             uint64_t desc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %17, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11}, "
+      "{%12, %13, %14, %15}, %16, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
+}
+
+// Two codes, at bits [0, BITS) and [16, 16 + BITS) of x, as one bf16x2
+// register: masked, they are the low mantissa bits of a bf16 of exponent
+// 7, 128 + code, and a bf16x2 multiply-add takes the 128 off (exact).
+__device__ __forceinline__ uint32_t code_pair(uint32_t x, uint32_t mask2) {
+  const uint32_t biased = (x & mask2) | 0x43004300u;
+  uint32_t out;
+  asm("fma.rn.bf16x2 %0, %1, %2, %3;\n"
+      : "=r"(out)
+      : "r"(biased), "r"(0x3F803F80u), "r"(0xC300C300u));
+  return out;
+}
+
+// x0 and x1 in three bf16 pieces each, h + m + l = x: a float32's 24 bits
+// of significand in three of 8 (each difference is exact). Returned as
+// bf16x2 registers, x0 in the low half.
+__device__ __forceinline__ void split3(float x0, float x1, uint32_t& h,
+                                       uint32_t& m, uint32_t& l) {
+  const __nv_bfloat162 hb = __floats2bfloat162_rn(x0, x1);
+  const float r0 = __fsub_rn(x0, __low2float(hb));
+  const float r1 = __fsub_rn(x1, __high2float(hb));
+  const __nv_bfloat162 mb = __floats2bfloat162_rn(r0, r1);
+  const __nv_bfloat162 lb = __floats2bfloat162_rn(
+      __fsub_rn(r0, __low2float(mb)), __fsub_rn(r1, __high2float(mb)));
+  h = *reinterpret_cast<const uint32_t*>(&hb);
+  m = *reinterpret_cast<const uint32_t*>(&mb);
+  l = *reinterpret_cast<const uint32_t*>(&lb);
+}
+
+// Column of B (and of the sums) that holds piece c of a thread's row i:
+// the thread of quad lane qa owns query rows qa + 4 i, and the columns
+// 8 t + 2 qa and 8 t + 2 qa + 1 of every group t of 8 are its own in the
+// accumulator layout, so the three pieces of a (token, row) or (channel,
+// row) sum in one thread.
+__host__ __device__ constexpr int mma_col(int i, int c, int qa) {
+  return 8 * ((3 * i + c) / 2) + 2 * qa + (3 * i + c) % 2;
+}
+// Index among a thread's accumulators of that column, in the row of the
+// thread's pair given by rh (0: row g8, 1: row g8 + 8).
+__host__ __device__ constexpr int mma_acc(int i, int c, int rh) {
+  return 4 * ((3 * i + c) / 2) + (3 * i + c) % 2 + 2 * rh;
+}
+
+// One block's work in the tile's form MMA: the tensor-core form takes the
+// shape mma_form names, whose sizes are constants here.
+template <int BITS, int GQ, bool BASE8, bool PAGED, bool MMA>
+__device__ __forceinline__ void split_body(const Params& p) {
   extern __shared__ uint4 smem_v[];
   char* smem = reinterpret_cast<char*>(smem_v);
   constexpr int VPB = 8 / BITS;
@@ -426,12 +631,13 @@ decode_split_kernel(Params p) {
   constexpr int BEL = BASE8 ? 1 : 2;  // bytes of a base element
   const int bh = blockIdx.x, split = blockIdx.y, tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
-  const int D = p.d, R = p.r, G = p.group, NB = p.nb;
+  const int D = MMA ? 128 : p.d, R = p.r, G = MMA ? 64 : p.group, NB = p.nb;
+  const int VG = MMA ? 64 : p.v_group;
   const int seq = bh / p.hkv;
   // blocks and tokens of one row of a leaf: a sequence's, or a page's (the
   // dense form reads both straight from the kernel's parameters)
   const int NBS = PAGED ? p.pb : p.nb;
-  const int TS = PAGED ? p.pb * p.group : p.t;
+  const int TS = PAGED ? p.pb * G : p.t;
   // the row's lengths: its sequence's in the paged form, the ones every row
   // shares in the dense form
   const int32_t* lens = PAGED ? p.lens + seq * 3 : p.lens;
@@ -439,27 +645,32 @@ decode_split_kernel(Params p) {
   const int resid_len = lens[1];
   const int KO = p.ko, KOH = p.ko / 2;
   const int WD = D * BITS / 32;
-  const int NGV = D / p.v_group;
+  const int NGV = D / VG;
   const int NBT = kTile / G;
   const int NS = p.n_split + 1;
-  const Stage L = stage_layout(D, BITS, R, G, p.v_group, KO, BASE8);
+  constexpr bool mma = MMA;
+  const Stage L = stage_layout(D, BITS, R, G, VG, KO, BASE8, mma);
 
   // the prefill's P rows of K and V, [2][R][D] in the base type
-  char* pre_p = smem + region_bytes(D, BITS, R, G, p.v_group, KO, BASE8);
+  char* pre_p =
+      smem + region_bytes(D, BITS, R, G, VG, KO, BASE8, mma);
+  // the tensor-core form's B operands (mma_bytes), on 16 bytes
+  char* opnd = pre_p + pre_bytes(D, R, BASE8);
   // working buffers; those read as float4 first, each a multiple of four
   // floats, so that they start on 16 bytes
   // one mbarrier a stage, which the stage's bulk copies count their bytes on
-  uint64_t* bars = reinterpret_cast<uint64_t*>(pre_p + pre_bytes(D, R, BASE8));
+  uint64_t* bars = reinterpret_cast<uint64_t*>(
+      opnd + (mma ? mma_bytes(GQ, NBT, NGV) : 0));
   float* q_s = reinterpret_cast<float*>(bars + kStages);
   float* qs_s = q_s + GQ * D;
-  float* pvs_s = qs_s + NBT * GQ * D;
-  float* p_s = pvs_s + GQ * NGV * kTile;
+  float* pvs_s = qs_s + (mma ? 0 : NBT * GQ * D);
+  float* p_s = pvs_s + (mma ? 0 : GQ * NGV * kTile);
   // the terms of the tile's outlier entries, [NBT][KO][GQ]: q[g][d] * delta
   // for K (until the scores), p[g][t] * delta for V (after the softmax)
   constexpr bool kTerms = term_buffer(GQ);
   float* ot_s = p_s + GQ * kTile;
   // the per-tile sums: the K side's until the scores, then the V side's
-  float* qm_s = ot_s + (kTerms ? NBT * KO * GQ : 0);
+  float* qm_s = ot_s + (kTerms && !mma ? NBT * KO * GQ : 0);
   float* qp_s = qm_s + NBT * GQ;
   float* pvm_s = qm_s;
   float* wv_s = pvm_s + GQ * NGV;
@@ -470,9 +681,11 @@ decode_split_kernel(Params p) {
                                        // prefill's tiles, [GQ][R]
   float* pre_sc = wv0_s + GQ * R;      // the prefill's int8 scales [4][R]:
                                        // kpt, kqt, vpt, vqt (int8 bases)
+  // the tile's softmax factor per query row (tensor-core form), [GQ]
+  float* alpha_s = pre_sc + (BASE8 ? 4 * R : 0);
   // paged: leaf row (page * hkv + head) and block offset in the page of
   // each quant block of the tile in each stage, [kStages][NBT]
-  int32_t* lrow_s = reinterpret_cast<int32_t*>(pre_sc + (BASE8 ? 4 * R : 0));
+  int32_t* lrow_s = reinterpret_cast<int32_t*>(alpha_s + (mma ? GQ : 0));
   int32_t* loff_s = lrow_s + kStages * NBT;
 
   for (int i = tid; i < GQ * D; i += kTile)
@@ -498,7 +711,7 @@ decode_split_kernel(Params p) {
     const int f = tid / stride_f, c = tid % stride_f;
     w_me = c / 4;
     shift_me = 8 * (c % 4) + f * BITS;
-    grp_me = tid / p.v_group;
+    grp_me = tid / VG;
   }
 
   // Split 0 attends the residual tier (scheduled first: it is the longest
@@ -635,23 +848,21 @@ decode_split_kernel(Params p) {
           b0 = (static_cast<size_t>(max(p.block_table[seq * p.maxp], 0)) *
                     p.hkv + bh % p.hkv) * NBS;
         const int pb = R * D * BEL;
-        if (tid == 0) {  // the bytes of the tile's bulk copies
+        if (tid == 0) {  // the bytes of the tile's bulk copies (blk_leaf's)
           int tx = 2 * WD * bulk(G * 4) + 2 * NGV * bulk(G * 2) +
-                   2 * R * bulk(G * BEL);
-          for (int id = 0; id < kLeaves; ++id) {
-            int off, bytes;
-            const void* src;
-            if (blk_leaf(id, off, src, bytes)) tx += bulk(bytes);
-          }
+                   2 * R * bulk(G * BEL) + 2 * bulk(D * 2);
+          if (!tg.pre)
+            tx += 2 * bulk(R * D * BEL) + (BASE8 ? 2 * bulk(R * 4) : 0);
+          if (KO) tx += 2 * (bulk(KOH * 4) + bulk(KO * 2) + bulk(kBnd * 4));
           tx = tx * nb + (pre0 ? 2 * bulk(pb) : 0);
           bar_expect(bar, tx);
         }
         // the stage was last read through the generic proxy
         asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
         if (warp == 0) {
-          tok_runs(L.kc, kTile, p.k_codes, WD, 4);
+          tok_runs(L.kc, L.kws, p.k_codes, WD, 4);
         } else if (warp == 1) {
-          tok_runs(L.vc, kVws, p.v_codes, WD, 4);
+          tok_runs(L.vc, L.vws, p.v_codes, WD, 4);
         } else if (warp == 2) {
           tok_runs(L.vs, kTile, p.v_scale, NGV, 2);
           tok_runs(L.vm, kTile, p.v_mn, NGV, 2);
@@ -714,65 +925,14 @@ decode_split_kernel(Params p) {
     __syncthreads();  // q_s and the first pages ready
     for (int k = 0; k < kStages; ++k) issue(k);
 
-    for (int k = 0; k < n_t; ++k) {
-      // groups issued: up to k + kStages - 1; at most kStages - 1 in flight
-      // means tile k has landed (this thread's copies) ...
-      cp_async_wait<kStages - 1>();
-      // ... and the bulk copies (the stage's k / kStages-th phase) ...
-      bar_wait(smem_addr(bars + k % kStages), (k / kStages) & 1);
-      __syncthreads();  // ... everyone's; and stage (k - 1)'s readers are done
-      // the pages of tile k + kStages: loaded now, stored after this tile's
-      // math, so that the load's latency hides behind it
-      const bool next = PAGED && warp == 0 && lane < NBT && k + kStages < n_t;
-      int next_row = 0, next_off = 0;
-      if (next) page_of(k + kStages, next_row, next_off);
-      const Geo tg = geo(k);
-      const int t0 = tg.t0, n_valid = tg.n_valid, jlo = tg.jlo, nbl = tg.nbl;
-      const bool pre = tg.pre;
-      const int RB = pre ? 0 : R;  // ranks of a per-block P
-      const int tlo = jlo * G;
-      const char* S = smem + (k % kStages) * L.bytes;
-      const bf16* ksc = reinterpret_cast<const bf16*>(S + L.ksc);
+    // q.mn (r = -1) and q.P_blk per (live block, query row) of the tile in
+    // stage S, into qm_s and qp_s: a warp per pair in turn, kSums of the
+    // sums reduced together. A prefill tile (RB 0) reduces q.mn alone: its
+    // q.P is q.P0, reduced into qp0_s once, with the block's first tile.
+    auto k_sums = [&](const char* S, int jlo, int nbl, int RB, bool first) {
       const bf16* kmn = reinterpret_cast<const bf16*>(S + L.kmn);
       const float* kps = reinterpret_cast<const float*>(S + L.kps);
-      const float* vps = reinterpret_cast<const float*>(S + L.vps);
       const float* kqs = reinterpret_cast<const float*>(S + L.kqs);
-      const float* vqs = reinterpret_cast<const float*>(S + L.vqs);
-
-      // K folds per live quant block of the tile: qs = q * scale, one thread
-      // per channel; then q.mn and q.P_blk per (block, query row), dealt to
-      // the warps in turn.
-      if (has_d) {
-        for (int j = jlo; j < nbl; ++j) {
-          const float sc = ld(ksc + j * D + tid);
-#pragma unroll
-          for (int g = 0; g < GQ; ++g)
-            qs_s[(j * GQ + g) * D + tid] = q_s[g * D + tid] * sc;
-        }
-      }
-      // K outliers, in a fixed share a thread (not per token, whose
-      // segments differ in length): every live entry's terms q[g][d] *
-      // delta, which each token's thread then sums over its segment
-      if (kTerms && KO) {
-        const int32_t* koi = reinterpret_cast<const int32_t*>(S + L.koi);
-        const bf16* kov = reinterpret_cast<const bf16*>(S + L.kov);
-        const int32_t* kob = reinterpret_cast<const int32_t*>(S + L.kob);
-        for (int j = jlo; j < nbl; ++j) {
-          const int pad_hi = kob[j * kBnd];  // the padding ends token 0's
-          for (int e = tid; e < KO; e += kTile) {
-            if (e > pad_hi - p.out_pad && e <= pad_hi) continue;
-            const int idx = out_idx(koi + j * KOH, e, KOH);
-            const int dd = dsh >= 0 ? idx & (D - 1) : idx % D;
-            const float delta = ld(kov + j * KO + e);
-            float* o = ot_s + (j * KO + e) * GQ;
-#pragma unroll
-            for (int g = 0; g < GQ; ++g) o[g] = q_s[g * D + dd] * delta;
-          }
-        }
-      }
-      // q.mn (r = -1) and q.P_blk per (live block, query row): a warp per
-      // pair in turn, kSums of the sums reduced together. A prefill tile
-      // reduces q.mn alone: its q.P is q.P0, reduced once below.
       for (int jg = warp; jg < (nbl - jlo) * GQ; jg += kWarps) {
         const int j = jlo + jg / GQ, g = jg - (jg / GQ) * GQ;
         if (RB == 0) {  // q.mn alone: one sum
@@ -816,7 +976,7 @@ decode_split_kernel(Params p) {
         }
       }
       // q.P0 per query row, once: the prefill's P rows landed with tile 0
-      if (k == 0 && has_pre) {
+      if (first) {
         for (int g = warp; g < GQ; g += kWarps) {
           for (int r0 = 0; r0 < R; r0 += kSums) {
             float part[kSums];
@@ -844,6 +1004,606 @@ decode_split_kernel(Params p) {
           }
         }
       }
+    };
+    // Per query row: the sums of p * vmn (j = -1, with vmn) and, per live
+    // block j, of p * Q[r, t], a warp per (row, j) in turn, kSums reduced
+    // together; a prefill tile sums p * Q[r, t] over the whole tile (j = 0),
+    // for the running prefill term.
+    auto v_sums = [&](const char* S, int jlo, int nbl, int tlo, int n_valid,
+                    bool pre, bool vmn) {
+      const bf16* vm = reinterpret_cast<const bf16*>(S + L.vm);
+      const float* vps = reinterpret_cast<const float*>(S + L.vps);
+      const float* vqs = reinterpret_cast<const float*>(S + L.vqs);
+      for (int it = warp; it < GQ * (1 + NBT); it += kWarps) {
+        const int g = it / (1 + NBT), j = it - g * (1 + NBT) - 1;
+        if (j < 0 && !vmn) continue;
+        const float* pg = p_s + g * kTile;
+        const int jt0 = pre ? tlo : j * G, jt1 = pre ? n_valid : (j + 1) * G;
+        if (j < 0) {
+          for (int v0 = 0; v0 < NGV; v0 += kSums) {
+            float part[kSums];
+#pragma unroll
+            for (int u = 0; u < kSums; ++u) part[u] = 0.0f;
+            for (int tt = tlo + lane; tt < n_valid; tt += 32) {
+              const float pv = pg[tt];
+#pragma unroll
+              for (int u = 0; u < kSums; ++u)
+                if (v0 + u < NGV) part[u] += pv * ld(vm + (v0 + u) * kTile + tt);
+            }
+            warp_sums<kSums>(part);
+            if (lane == 0) {
+#pragma unroll
+              for (int u = 0; u < kSums; ++u)
+                if (v0 + u < NGV) pvm_s[g * NGV + v0 + u] = part[u];
+            }
+          }
+        } else if (pre ? j == 0 : j >= jlo && j < nbl) {
+          for (int r0 = 0; r0 < R; r0 += kSums) {
+            float part[kSums];
+#pragma unroll
+            for (int u = 0; u < kSums; ++u) part[u] = 0.0f;
+            for (int tt = jt0 + lane; tt < jt1; tt += 32) {
+              const float pv = pg[tt];
+#pragma unroll
+              for (int u = 0; u < kSums; ++u)
+                if (r0 + u < R)
+                  part[u] += pv * ldb<BASE8>(S + L.vq, (r0 + u) * kTile + tt);
+            }
+            warp_sums<kSums>(part);
+            if (lane == 0) {
+#pragma unroll
+              for (int u = 0; u < kSums; ++u) {
+                const int rr = r0 + u;
+                if (rr < R && pre) {  // [GQ][R]; the P scale at the end
+                  float v = part[u];
+                  if constexpr (BASE8) v *= pre_sc[3 * R + rr];
+                  wv_s[g * R + rr] = v;
+                } else if (rr < R) {
+                  float v = part[u];
+                  if constexpr (BASE8) v *= vqs[rr * NBT + j] * vps[j * R + rr];
+                  wv_s[(g * NBT + j) * R + rr] = v;
+                }
+              }
+            }
+          }
+        }
+      }
+    };
+
+    // The tensor-core form (see the header): the K scores and the PV sums
+    // as warpgroup MMAs over codes unpacked in registers. NBT = NGV = 2 and
+    // WD = 4 BITS here; a thread owns query rows qa + 4 i (i < RPT).
+    if constexpr (MMA) {
+      constexpr int RPT = (GQ + 3) / 4;
+      constexpr int NN = mma_cols(GQ);
+      constexpr int NACC = NN / 2;         // accumulators of a chain
+      constexpr int KSB = mma_kstep_bytes(GQ);
+      constexpr int CHAIN = 8 * KSB;       // bytes of a chain's B
+      constexpr int NSUM = 3 + kMmaRanks;  // running sums of a row
+      constexpr uint32_t MASK2 = MASK | (MASK << 16);
+      const int g8 = lane >> 2, qa = lane & 3;
+      const uint32_t opnd_at = smem_addr(opnd);
+      // K: rows g8 and g8 + 8 of warp w in chain j are the tokens
+      // 64 j + tk and 64 j + tk + 1; the quad lane qa reads their words
+      // 2 qa + (i & 1) + 8 (i >> 1), i < BITS.
+      const int tk = 16 * warp + 2 * g8;
+      // V: rows g8 and g8 + 8 of warp w in d-group gv are the channels
+      // of bytes vb and vb + 1 of word vw, field vfield(gv); the quad's
+      // four token columns of a k-step are four consecutive tokens.
+      const int vw = 4 * (warp % BITS) + (g8 >> 2) + 2 * ((g8 & 3) >> 1);
+      const int vb = 2 * (g8 & 1);
+      const int vfl = warp / BITS;
+      const uint32_t vsel = vb ? 0x7632u : 0x5410u;
+      auto vfield = [&](int gv) { return gv * (VPB / 2) + vfl; };
+      auto vch = [&](int gv, int rh) {
+        return 4 * vw + vb + rh + stride_f * vfield(gv);
+      };
+      // K's B: a channel pair (d, d + 2) is rows kk and kk + 1 of a
+      // k-step. This thread writes query rows fg + GL gh of the pairs
+      // frest + (128 / GL) pu: a warp's lanes cover 4 rows and 4 word
+      // pairs, so that its stores fall in 16 banks.
+      constexpr int GL = GQ < 4 ? GQ : 4;
+      const int fg = lane % GL, frest = lane / GL + (32 / GL) * warp;
+      // PV's B: this thread's two tokens of chain j are rows kkv and
+      // kkv + 1 of k-step 4 j + warp.
+      const int kkv = 2 * (g8 >> 1) + 8 * (g8 & 1);
+
+      float accv[2][NACC];  // PV sums, d-groups 0 and 1
+      float m_own[RPT], l_own[RPT];
+      // running sums over this thread's tokens: p (l_own), p * vmn per
+      // d-group, and p * Q[r, t] over the prefill's tiles
+      float vmn_own[RPT][2], qr_own[RPT][kMmaRanks];
+      // running sums of the terms of one of the quad's four channels,
+      // vch(qa >> 1, qa & 1), for every query row: its outlier segments
+      // and the low-rank term of blocks past the prefill
+      float ov[GQ];
+#pragma unroll
+      for (int g = 0; g < GQ; ++g) ov[g] = 0.0f;
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) {
+        m_own[i] = -INFINITY;
+        l_own[i] = 0.0f;
+        vmn_own[i][0] = vmn_own[i][1] = 0.0f;
+#pragma unroll
+        for (int rr = 0; rr < kMmaRanks; ++rr) qr_own[i][rr] = 0.0f;
+      }
+#pragma unroll
+      for (int x = 0; x < NACC; ++x) accv[0][x] = accv[1][x] = 0.0f;
+
+      for (int k = 0; k < n_t; ++k) {
+        cp_async_wait<kStages - 1>();
+        bar_wait(smem_addr(bars + k % kStages), (k / kStages) & 1);
+        __syncthreads();
+        const bool next =
+            PAGED && warp == 0 && lane < NBT && k + kStages < n_t;
+        int next_row = 0, next_off = 0;
+        if (next) page_of(k + kStages, next_row, next_off);
+        const Geo tg = geo(k);
+        const int t0 = tg.t0, n_valid = tg.n_valid, jlo = tg.jlo;
+        const int nbl = tg.nbl, tlo = jlo * G;
+        const bool pre = tg.pre;
+        const char* S = smem + (k % kStages) * L.bytes;
+        const bf16* ksc = reinterpret_cast<const bf16*>(S + L.ksc);
+
+        // K's B per live quant block: q * scale in three bf16 pieces
+        for (int j = jlo; j < nbl; ++j) {
+          char* bj = opnd + j * CHAIN;
+#pragma unroll
+          for (int pu = 0; pu < GL / 2; ++pu) {
+            // pair q: word 2 fa + fwl + 8 fwh of field fe, byte fhk
+            const int q = frest + (128 / GL) * pu;
+            const int fa = q & 3, fwl = (q >> 2) & 1, up = q >> 3;
+            const int fhk = up & 1;
+            const int fwh = BITS == 4 ? (up >> 1) & 1 : 0;
+            const int fe = BITS == 4 ? up >> 2 : up >> 1;
+            const int fd = stride_f * fe + 4 * (2 * fa + fwl + 8 * fwh) + fhk;
+            const int fks = (2 * fwh + fwl) * VPB + fe, fkk = 8 * fhk + 2 * fa;
+            const float s0 = ld(ksc + j * D + fd);
+            const float s1 = ld(ksc + j * D + fd + 2);
+#pragma unroll
+            for (int gh = 0; gh < GQ / GL; ++gh) {
+              const int g = fg + GL * gh;
+              uint32_t pc[3];
+              split3(__fmul_rn(q_s[g * D + fd], s0),
+                     __fmul_rn(q_s[g * D + fd + 2], s1), pc[0], pc[1], pc[2]);
+#pragma unroll
+              for (int c = 0; c < 3; ++c)
+                *reinterpret_cast<uint32_t*>(
+                    bj + b_off(KSB, fks, fkk, mma_col(g >> 2, c, g & 3))) =
+                    pc[c];
+            }
+          }
+        }
+        // q.mn and q.P per (live block, row), q.P0 once
+        k_sums(S, jlo, nbl, pre ? 0 : R, k == 0 && has_pre);
+        fence_async_smem();
+        __syncthreads();  // K's B and the folds' sums ready
+
+        // K scores, a quant block at a time (so that one chain's A
+        // registers are live at once). While block 0's chain runs, each
+        // lane of a quad forms the terms of one of the quad's four tokens
+        // for every query row -- q.mn + (q.P).Q[:, t] + the token's
+        // outlier segment -- and passes them through p_s (free until the
+        // softmax): a lane walks one segment, not four.
+        auto k_chain = [&](int jj, float* ck) {
+          const uint32_t* kc =
+              reinterpret_cast<const uint32_t*>(S + L.kc) + 64 * jj + tk;
+          uint32_t a[8][4];
+#pragma unroll
+          for (int i = 0; i < BITS; ++i) {
+            const int W = 2 * qa + (i & 1) + 8 * (i >> 1);
+            const uint2 w =
+                *reinterpret_cast<const uint2*>(kc + W * (kTile + 4));
+#pragma unroll
+            for (int e = 0; e < VPB; ++e) {
+              a[i * VPB + e][0] = code_pair(w.x >> (BITS * e), MASK2);
+              a[i * VPB + e][1] = code_pair(w.y >> (BITS * e), MASK2);
+              a[i * VPB + e][2] = code_pair(w.x >> (8 + BITS * e), MASK2);
+              a[i * VPB + e][3] = code_pair(w.y >> (8 + BITS * e), MASK2);
+            }
+          }
+          const uint64_t desc = b_desc(opnd_at + jj * CHAIN);
+          wgmma_fence();
+#pragma unroll
+          for (int ks = 0; ks < 8; ++ks)
+            wgmma_rs<NN>(ck, a[ks], desc + ((ks * KSB) >> 4));
+        };
+        bool valid[2][2];
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            valid[jj][h] =
+                jj >= jlo && jj < nbl && t0 + 64 * jj + tk + h >= pad;
+        float ck0[NACC], ck1[NACC];
+#pragma unroll
+        for (int x = 0; x < NACC; ++x) ck0[x] = ck1[x] = 0.0f;
+        if (jlo <= 0 && 0 < nbl) k_chain(0, ck0);
+        wgmma_commit();
+        {
+          const int jt = qa >> 1, tok = 64 * jt + tk + (qa & 1);
+          float e[GQ];
+#pragma unroll
+          for (int g = 0; g < GQ; ++g) e[g] = 0.0f;
+          if (jt >= jlo && jt < nbl && t0 + tok >= pad) {
+            const float* qpj = pre ? qp0_s : qp_s + jt * GQ * R;
+#pragma unroll
+            for (int g = 0; g < GQ; ++g) e[g] = qm_s[jt * GQ + g];
+            for (int rr = 0; rr < R; ++rr) {
+              const float kq = ldb<BASE8>(S + L.kq, rr * kTile + tok);
+#pragma unroll
+              for (int g = 0; g < GQ; ++g) e[g] += qpj[g * R + rr] * kq;
+            }
+            if (KO) {  // the token's segment, in entry order
+              const int32_t* kob = reinterpret_cast<const int32_t*>(S + L.kob);
+              const int32_t* koi = reinterpret_cast<const int32_t*>(S + L.koi);
+              const bf16* kov = reinterpret_cast<const bf16*>(S + L.kov);
+              const int tl = tok - 64 * jt;
+              const int lo = tl ? kob[jt * kBnd + tl - 1] + 1 : 0;
+              const int hi =
+                  min(kob[jt * kBnd + tl], KO - 1) - (tl ? 0 : p.out_pad);
+              for (int x = max(lo, 0); x <= hi; ++x) {
+                const int dd = out_idx(koi + jt * KOH, x, KOH) & (D - 1);
+                const float delta = ld(kov + jt * KO + x);
+#pragma unroll
+                for (int g = 0; g < GQ; ++g) e[g] += q_s[g * D + dd] * delta;
+              }
+            }
+          }
+#pragma unroll
+          for (int g = 0; g < GQ; ++g) p_s[g * kTile + tok] = e[g];
+        }
+        __syncwarp();
+        float sc[2][2][RPT];
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+#pragma unroll
+            for (int i = 0; i < RPT; ++i)
+              sc[jj][h][i] = qa + 4 * i < GQ
+                                 ? p_s[(qa + 4 * i) * kTile + 64 * jj + tk + h]
+                                 : 0.0f;
+        wgmma_wait_all();
+        wgmma_touch<NACC>(ck0);
+        if (jlo <= 1 && 1 < nbl) k_chain(1, ck1);
+        wgmma_commit();
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int i = 0; i < RPT; ++i)
+            sc[0][h][i] += (ck0[mma_acc(i, 0, h)] + ck0[mma_acc(i, 1, h)]) +
+                           ck0[mma_acc(i, 2, h)];
+        wgmma_wait_all();
+        wgmma_touch<NACC>(ck1);
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int i = 0; i < RPT; ++i)
+            sc[1][h][i] += (ck1[mma_acc(i, 0, h)] + ck1[mma_acc(i, 1, h)]) +
+                           ck1[mma_acc(i, 2, h)];
+
+        // Online softmax over the tile: a row's scores lie in the 8
+        // lanes of its quad lane in each warp. The sum of p is a running
+        // sum of the lane's own tokens, reduced once a block.
+        float alpha_own[RPT], pr[2][2][RPT];
+#pragma unroll
+        for (int i = 0; i < RPT; ++i) {
+          float mx = -INFINITY;
+#pragma unroll
+          for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              if (valid[jj][h]) mx = fmaxf(mx, sc[jj][h][i]);
+#pragma unroll
+          for (int o = 4; o < 32; o <<= 1)
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+          if (g8 == 0 && qa + 4 * i < GQ)
+            red_max[(qa + 4 * i) * kWarps + warp] = mx;
+        }
+        __syncthreads();
+#pragma unroll
+        for (int i = 0; i < RPT; ++i) {
+          const int g = qa + 4 * i;
+          float ps = 0.0f;
+          alpha_own[i] = 1.0f;
+#pragma unroll
+          for (int jj = 0; jj < 2; ++jj)
+            pr[jj][0][i] = pr[jj][1][i] = 0.0f;
+          if (g < GQ) {
+            float tmax = -INFINITY;
+#pragma unroll
+            for (int w = 0; w < kWarps; ++w)
+              tmax = fmaxf(tmax, red_max[g * kWarps + w]);
+            const float m_new = fmaxf(m_own[i], tmax);
+            alpha_own[i] =
+                m_new == -INFINITY ? 1.0f : expf(m_own[i] - m_new);
+            if (warp == 0 && g8 == 0) alpha_s[g] = alpha_own[i];
+#pragma unroll
+            for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+              for (int h = 0; h < 2; ++h) {
+                const float pv =
+                    valid[jj][h] ? expf(sc[jj][h][i] - m_new) : 0.0f;
+                pr[jj][h][i] = pv;
+                p_s[g * kTile + 64 * jj + tk + h] = pv;
+                ps += pv;
+              }
+            m_own[i] = m_new;
+          }
+          l_own[i] = l_own[i] * alpha_own[i] + ps;
+        }
+
+        // PV's B per d-group: p * vscale in three bf16 pieces; the
+        // running sums of p * vmn and, in a prefill tile, p * Q[r, t]
+        const bf16* vs = reinterpret_cast<const bf16*>(S + L.vs);
+        const bf16* vm = reinterpret_cast<const bf16*>(S + L.vm);
+#pragma unroll
+        for (int i = 0; i < RPT; ++i) {
+          const int g = qa + 4 * i;
+          if (g >= GQ) continue;
+#pragma unroll
+          for (int gv = 0; gv < 2; ++gv) vmn_own[i][gv] *= alpha_own[i];
+#pragma unroll
+          for (int rr = 0; rr < kMmaRanks; ++rr) qr_own[i][rr] *= alpha_own[i];
+#pragma unroll
+          for (int jj = 0; jj < 2; ++jj) {
+            const int tok = 64 * jj + tk;
+            const float p0 = pr[jj][0][i], p1 = pr[jj][1][i];
+            const bool v0 = valid[jj][0], v1 = valid[jj][1];
+#pragma unroll
+            for (int gv = 0; gv < 2; ++gv) {
+              const bf16* vsg = vs + gv * kTile + tok;
+              const bf16* vmg = vm + gv * kTile + tok;
+              uint32_t pc[3];
+              split3(v0 ? __fmul_rn(p0, ld(vsg)) : 0.0f,
+                     v1 ? __fmul_rn(p1, ld(vsg + 1)) : 0.0f, pc[0], pc[1],
+                     pc[2]);
+#pragma unroll
+              for (int c = 0; c < 3; ++c)
+                *reinterpret_cast<uint32_t*>(
+                    opnd + gv * CHAIN +
+                    b_off(KSB, 4 * jj + warp, kkv, mma_col(i, c, qa))) =
+                    pc[c];
+              vmn_own[i][gv] += (v0 ? p0 * ld(vmg) : 0.0f) +
+                                (v1 ? p1 * ld(vmg + 1) : 0.0f);
+            }
+            if (pre) {
+#pragma unroll
+              for (int rr = 0; rr < kMmaRanks; ++rr) {
+                if (rr >= R) break;
+                const int at = rr * kTile + tok;
+                qr_own[i][rr] +=
+                    (v0 ? p0 * ldb<BASE8>(S + L.vq, at) : 0.0f) +
+                    (v1 ? p1 * ldb<BASE8>(S + L.vq, at + 1) : 0.0f);
+              }
+            }
+          }
+        }
+        // a block past the prefill: sum_t p * Q[r, t] per (row, block),
+        // once every thread's p is in p_s
+        if (!pre) {
+          __syncthreads();
+          v_sums(S, jlo, nbl, tlo, n_valid, false, false);
+        }
+        fence_async_smem();
+        __syncthreads();  // PV's B and wv_s ready
+
+        // PV: the sums rescaled; then, a quant block at a time, its 4
+        // k-steps of 16 tokens as 2 MMAs each (one per d-group), issued
+        // and waited for. While block 0's run, each lane of a quad adds
+        // the terms of one of the quad's four channels for every query
+        // row into its running sums ov: the low-rank term past the
+        // prefill, the outlier segments.
+#pragma unroll
+        for (int x = 0; x < NACC; ++x) {
+          constexpr int kNc = 3 * RPT;
+          const int c = 2 * (x / 4) + (x & 1);
+          if (c < kNc) {
+            accv[0][x] *= alpha_own[c / 3];
+            accv[1][x] *= alpha_own[c / 3];
+          }
+        }
+        const uint32_t* vc =
+            reinterpret_cast<const uint32_t*>(S + L.vc) + vw * kTile + 4 * qa;
+        const int sv0 = BITS * vfield(0), sv1 = BITS * vfield(1);
+        auto v_group = [&](int jj) {
+#pragma unroll
+          for (int kq = 0; kq < 4; ++kq) {
+            const int ks = 4 * jj + kq;
+            const uint4 x = *reinterpret_cast<const uint4*>(vc + 16 * ks);
+            const uint32_t lo = __byte_perm(x.x, x.y, vsel);
+            const uint32_t hi = __byte_perm(x.z, x.w, vsel);
+            const uint32_t a0[4] = {
+                code_pair(lo >> sv0, MASK2), code_pair(lo >> (sv0 + 8), MASK2),
+                code_pair(hi >> sv0, MASK2), code_pair(hi >> (sv0 + 8), MASK2)};
+            const uint32_t a1[4] = {
+                code_pair(lo >> sv1, MASK2), code_pair(lo >> (sv1 + 8), MASK2),
+                code_pair(hi >> sv1, MASK2), code_pair(hi >> (sv1 + 8), MASK2)};
+            wgmma_fence();
+            wgmma_rs<NN>(accv[0], a0, b_desc(opnd_at) + ((ks * KSB) >> 4));
+            wgmma_rs<NN>(accv[1], a1,
+                         b_desc(opnd_at + CHAIN) + ((ks * KSB) >> 4));
+          }
+        };
+        if (jlo <= 0 && 0 < nbl) v_group(0);
+        wgmma_commit();
+        {
+          const int ch = vch(qa >> 1, qa & 1);
+#pragma unroll
+          for (int g = 0; g < GQ; ++g) ov[g] *= alpha_s[g];
+          const int32_t* vob = reinterpret_cast<const int32_t*>(S + L.vob);
+          const int32_t* voi = reinterpret_cast<const int32_t*>(S + L.voi);
+          const bf16* vov = reinterpret_cast<const bf16*>(S + L.vov);
+          for (int j = jlo; j < nbl; ++j) {
+            if (!pre) {  // the block's own P: (sum_t p * Q[r, t]) * P[r, d]
+              for (int rr = 0; rr < R; ++rr) {
+                const float pe = ldb<BASE8>(S + L.vp, (j * R + rr) * D + ch);
+#pragma unroll
+                for (int g = 0; g < GQ; ++g)
+                  ov[g] += wv_s[(g * NBT + j) * R + rr] * pe;
+              }
+            }
+            if (KO) {  // the channel's segment of the block, in entry order
+              const int lo = ch ? vob[j * kBnd + ch - 1] + 1 : 0;
+              const int hi =
+                  min(vob[j * kBnd + ch], KO - 1) - (ch ? 0 : p.out_pad);
+              for (int x = max(lo, 0); x <= hi; ++x) {
+                const int tl = min(out_idx(voi + j * KOH, x, KOH) >> 7, G - 1);
+                const float delta = ld(vov + j * KO + x);
+#pragma unroll
+                for (int g = 0; g < GQ; ++g)
+                  ov[g] += p_s[g * kTile + j * G + tl] * delta;
+              }
+            }
+          }
+        }
+        wgmma_wait_all();
+        wgmma_touch<NACC>(accv[0]);
+        wgmma_touch<NACC>(accv[1]);
+        if (jlo <= 1 && 1 < nbl) {
+          v_group(1);
+          wgmma_commit();
+          wgmma_wait_all();
+          wgmma_touch<NACC>(accv[0]);
+          wgmma_touch<NACC>(accv[1]);
+        }
+        // lookup slot k % kStages: its last reader was issue(k)
+        if (next) put_page(k + kStages, next_row, next_off);
+        __syncthreads();  // every read of stage k % kStages is done
+        issue(k + kStages);
+      }
+      cp_async_wait<0>();  // no copy outlives the block
+
+      // The running sums over the block's tokens, reduced over the
+      // lanes of a row (xor 4, 8, 16), then the warps (through q_s, which
+      // the loop's last barrier freed, as [kWarps][GQ][NSUM]); each
+      // lane's channel terms ov to their rows' owners through p_s
+      // ([GQ][D])
+#pragma unroll
+      for (int o = 4; o < 32; o <<= 1) {
+#pragma unroll
+        for (int i = 0; i < RPT; ++i) {
+#pragma unroll
+          for (int gv = 0; gv < 2; ++gv)
+            vmn_own[i][gv] += __shfl_xor_sync(0xffffffffu, vmn_own[i][gv], o);
+#pragma unroll
+          for (int rr = 0; rr < kMmaRanks; ++rr)
+            qr_own[i][rr] += __shfl_xor_sync(0xffffffffu, qr_own[i][rr], o);
+          l_own[i] += __shfl_xor_sync(0xffffffffu, l_own[i], o);
+        }
+      }
+      float* red = q_s;  // free now, as is p_s
+#pragma unroll
+      for (int g = 0; g < GQ; ++g) p_s[g * D + vch(qa >> 1, qa & 1)] = ov[g];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) {
+        const int g = qa + 4 * i;
+        if (g8 != 0 || g >= GQ) continue;
+        float* r = red + (warp * GQ + g) * NSUM;
+        r[0] = vmn_own[i][0];
+        r[1] = vmn_own[i][1];
+#pragma unroll
+        for (int rr = 0; rr < kMmaRanks; ++rr) r[2 + rr] = qr_own[i][rr];
+        r[NSUM - 1] = l_own[i];
+      }
+      __syncthreads();
+      const size_t slot = static_cast<size_t>(bh) * NS + split;
+      const char* pv0 = pre_p + R * D * BEL;  // the prefill's V P rows
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) {
+        const int g = qa + 4 * i;
+        if (g >= GQ) continue;
+        float tot[NSUM];
+#pragma unroll
+        for (int u = 0; u < NSUM; ++u) {
+          tot[u] = 0.0f;
+#pragma unroll
+          for (int w = 0; w < kWarps; ++w)
+            tot[u] += red[(w * GQ + g) * NSUM + u];
+        }
+#pragma unroll
+        for (int gv = 0; gv < 2; ++gv) {
+#pragma unroll
+          for (int rh = 0; rh < 2; ++rh) {
+            const int ch = vch(gv, rh);
+            float v = (accv[gv][mma_acc(i, 0, rh)] +
+                       accv[gv][mma_acc(i, 1, rh)]) +
+                      accv[gv][mma_acc(i, 2, rh)] + tot[gv] +
+                      p_s[g * D + ch];
+            if (has_pre) {  // sum_r (sum_t p * Q[r, t]) * P0[r, d]
+#pragma unroll
+              for (int rr = 0; rr < kMmaRanks; ++rr) {
+                if (rr >= R) break;
+                float w = tot[2 + rr];
+                if constexpr (BASE8)
+                  w *= pre_sc[3 * R + rr] * pre_sc[2 * R + rr];
+                v += w * ldb<BASE8>(pv0, rr * D + ch);
+              }
+            }
+            p.part_acc[(slot * GQ + g) * D + ch] = v;
+          }
+        }
+        if (warp == 0 && g8 == 0) {
+          p.part_ml[(slot * GQ + g) * 2] = m_own[i];
+          p.part_ml[(slot * GQ + g) * 2 + 1] = tot[NSUM - 1];
+        }
+      }
+      return;
+    }
+
+    for (int k = 0; k < n_t; ++k) {
+      // groups issued: up to k + kStages - 1; at most kStages - 1 in flight
+      // means tile k has landed (this thread's copies) ...
+      cp_async_wait<kStages - 1>();
+      // ... and the bulk copies (the stage's k / kStages-th phase) ...
+      bar_wait(smem_addr(bars + k % kStages), (k / kStages) & 1);
+      __syncthreads();  // ... everyone's; and stage (k - 1)'s readers are done
+      // the pages of tile k + kStages: loaded now, stored after this tile's
+      // math, so that the load's latency hides behind it
+      const bool next = PAGED && warp == 0 && lane < NBT && k + kStages < n_t;
+      int next_row = 0, next_off = 0;
+      if (next) page_of(k + kStages, next_row, next_off);
+      const Geo tg = geo(k);
+      const int t0 = tg.t0, n_valid = tg.n_valid, jlo = tg.jlo, nbl = tg.nbl;
+      const bool pre = tg.pre;
+      const int RB = pre ? 0 : R;  // ranks of a per-block P
+      const int tlo = jlo * G;
+      const char* S = smem + (k % kStages) * L.bytes;
+      const bf16* ksc = reinterpret_cast<const bf16*>(S + L.ksc);
+
+      // K folds per live quant block of the tile: qs = q * scale, one thread
+      // per channel; then q.mn and q.P_blk per (block, query row), dealt to
+      // the warps in turn.
+      if (has_d) {
+        for (int j = jlo; j < nbl; ++j) {
+          const float sc = ld(ksc + j * D + tid);
+#pragma unroll
+          for (int g = 0; g < GQ; ++g)
+            qs_s[(j * GQ + g) * D + tid] = q_s[g * D + tid] * sc;
+        }
+      }
+      // K outliers, in a fixed share a thread (not per token, whose
+      // segments differ in length): every live entry's terms q[g][d] *
+      // delta, which each token's thread then sums over its segment
+      if (kTerms && KO) {
+        const int32_t* koi = reinterpret_cast<const int32_t*>(S + L.koi);
+        const bf16* kov = reinterpret_cast<const bf16*>(S + L.kov);
+        const int32_t* kob = reinterpret_cast<const int32_t*>(S + L.kob);
+        for (int j = jlo; j < nbl; ++j) {
+          const int pad_hi = kob[j * kBnd];  // the padding ends token 0's
+          for (int e = tid; e < KO; e += kTile) {
+            if (e > pad_hi - p.out_pad && e <= pad_hi) continue;
+            const int idx = out_idx(koi + j * KOH, e, KOH);
+            const int dd = dsh >= 0 ? idx & (D - 1) : idx % D;
+            const float delta = ld(kov + j * KO + e);
+            float* o = ot_s + (j * KO + e) * GQ;
+#pragma unroll
+            for (int g = 0; g < GQ; ++g) o[g] = q_s[g * D + dd] * delta;
+          }
+        }
+      }
+      k_sums(S, jlo, nbl, RB, k == 0 && has_pre);
       __syncthreads();
 
       // Scores: one thread per token, its code words from the stage.
@@ -910,7 +1670,6 @@ decode_split_kernel(Params p) {
       // folded in (the low-rank term then costs R multiply-adds per channel
       // per block, not per token). Only tokens in [tlo, n_valid) are read.
       const bf16* vs = reinterpret_cast<const bf16*>(S + L.vs);
-      const bf16* vm = reinterpret_cast<const bf16*>(S + L.vm);
 #pragma unroll
       for (int g = 0; g < GQ; ++g)
         for (int gv = 0; gv < NGV; ++gv)
@@ -937,63 +1696,7 @@ decode_split_kernel(Params p) {
           }
         }
       }
-      // per query row: the sums of p * vmn (j = -1) and, per live block j,
-      // of p * Q[r, t], a warp per (row, j) in turn, kSums reduced together;
-      // a prefill tile sums p * Q[r, t] over the whole tile (j = 0), for
-      // the running prefill term
-      for (int it = warp; it < GQ * (1 + NBT); it += kWarps) {
-        const int g = it / (1 + NBT), j = it - g * (1 + NBT) - 1;
-        const float* pg = p_s + g * kTile;
-        const int jt0 = pre ? tlo : j * G, jt1 = pre ? n_valid : (j + 1) * G;
-        if (j < 0) {
-          for (int v0 = 0; v0 < NGV; v0 += kSums) {
-            float part[kSums];
-#pragma unroll
-            for (int u = 0; u < kSums; ++u) part[u] = 0.0f;
-            for (int tt = tlo + lane; tt < n_valid; tt += 32) {
-              const float pv = pg[tt];
-#pragma unroll
-              for (int u = 0; u < kSums; ++u)
-                if (v0 + u < NGV) part[u] += pv * ld(vm + (v0 + u) * kTile + tt);
-            }
-            warp_sums<kSums>(part);
-            if (lane == 0) {
-#pragma unroll
-              for (int u = 0; u < kSums; ++u)
-                if (v0 + u < NGV) pvm_s[g * NGV + v0 + u] = part[u];
-            }
-          }
-        } else if (pre ? j == 0 : j >= jlo && j < nbl) {
-          for (int r0 = 0; r0 < R; r0 += kSums) {
-            float part[kSums];
-#pragma unroll
-            for (int u = 0; u < kSums; ++u) part[u] = 0.0f;
-            for (int tt = jt0 + lane; tt < jt1; tt += 32) {
-              const float pv = pg[tt];
-#pragma unroll
-              for (int u = 0; u < kSums; ++u)
-                if (r0 + u < R)
-                  part[u] += pv * ldb<BASE8>(S + L.vq, (r0 + u) * kTile + tt);
-            }
-            warp_sums<kSums>(part);
-            if (lane == 0) {
-#pragma unroll
-              for (int u = 0; u < kSums; ++u) {
-                const int rr = r0 + u;
-                if (rr < R && pre) {  // [GQ][R]; the P scale at the end
-                  float v = part[u];
-                  if constexpr (BASE8) v *= pre_sc[3 * R + rr];
-                  wv_s[g * R + rr] = v;
-                } else if (rr < R) {
-                  float v = part[u];
-                  if constexpr (BASE8) v *= vqs[rr * NBT + j] * vps[j * R + rr];
-                  wv_s[(g * NBT + j) * R + rr] = v;
-                }
-              }
-            }
-          }
-        }
-      }
+      v_sums(S, jlo, nbl, tlo, n_valid, pre, true);
       __syncthreads();
 
       // PV: one thread per channel.
@@ -1009,7 +1712,7 @@ decode_split_kernel(Params p) {
         // n_valid are multiples of the group, itself a multiple of 4), and
         // p * vscale of each query row one float4.
         const uint32_t* vc =
-            reinterpret_cast<const uint32_t*>(S + L.vc) + w_me * kVws;
+            reinterpret_cast<const uint32_t*>(S + L.vc) + w_me * (kTile + 4);
         const float* pvs = pvs_s + grp_me * kTile;
         for (int tt = tlo; tt < n_valid; tt += 4) {
           const uint4 w4 = *reinterpret_cast<const uint4*>(vc + tt);
@@ -1144,6 +1847,18 @@ decode_split_kernel(Params p) {
   store_partial<GQ>(p.part_acc, p.part_ml,
                     static_cast<size_t>(bh) * NS + split, D, has_d, m_run,
                     l_run, acc);
+}
+
+template <int BITS, int GQ, bool BASE8, bool PAGED>
+__global__ void __launch_bounds__(kTile, min_blocks(BITS, GQ))
+decode_split_kernel(Params p) {
+  if constexpr (mma_codes(BITS, GQ)) {
+    if (mma_form(BITS, GQ, p.d, p.group, p.v_group, p.r)) {
+      split_body<BITS, GQ, BASE8, PAGED, true>(p);
+      return;
+    }
+  }
+  split_body<BITS, GQ, BASE8, PAGED, false>(p);
 }
 
 constexpr bool kPaged = GEAR_DECODE_PAGED != 0;

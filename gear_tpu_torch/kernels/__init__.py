@@ -6,6 +6,7 @@ def _wrappers() -> dict:
 
     return {
         "decode_attention": decode.decode_attention,
+        "decode_attention_mma": decode.mma_products,
         "decode_attention_paged": decode.decode_attention_paged,
         "flash_decode": flash.flash_decode,
         "flush": flush.flush,
@@ -16,7 +17,8 @@ def _wrappers() -> dict:
 
 def launch_counts() -> dict[str, int]:
     """Calls of each hand-written kernel's launching wrapper since the last
-    reset: those kernels only. The launches a decode step makes on the
+    reset: those kernels only (``decode_attention_mma``: the decode
+    launches, dense or paged, that took the tensor-core products). The launches a decode step makes on the
     card, library kernels, copies and fills included, are its device
     records in a ``torch.profiler`` trace."""
     return {name: fn.launches for name, fn in _wrappers().items()}

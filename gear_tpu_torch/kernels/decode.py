@@ -22,7 +22,11 @@ Bound on the card: bytes. One call reads the live part of a layer's cache
 once; with GEAR's outliers each quant block and tensor adds ``ko_store`` x 4
 bytes of entries and a 512-byte boundary table, int8 bases halve the base
 bytes and add four f32 scales per (block, rank). ``chip_smoke.py`` counts
-these from the call's shapes.
+these from the call's shapes. The kernel's products are warpgroup MMAs over
+codes unpacked in registers where :func:`mma_form` holds (int2 and int4
+codes, two or more query rows, head_dim 128, group 64), multiply-adds on
+the CUDA cores elsewhere; ``mma_products`` counts the launches that take
+the MMAs.
 
 Like the TPU kernel's ``dual_region`` path, the kernel reads the prefill's
 P basis (replicated over the prefill's blocks by ``cache.prefill``) once
@@ -32,6 +36,8 @@ stores its whole-span scale replicated per block row, and the kernel reads
 it like any other.
 """
 from __future__ import annotations
+
+import types
 
 import torch
 
@@ -49,6 +55,33 @@ BND_LANES = 128     # width of an outlier boundary table
 STAGES = 2          # tiles in the ring of one block (csrc/decode.cu kStages)
 SMEM_MAX = 232448   # shared memory a block can have on an H100
 SM_SMEM = 233472    # shared memory of an SM on an H100
+MMA_RANKS = 4       # ranks the tensor-core form takes (csrc/decode.cu
+                    # kMmaRanks)
+
+
+def mma_codes(bits: int, gq: int) -> bool:
+    """Whether the decode kernel's instantiation for (bits, GQ) has the
+    tensor-core products (csrc/decode.cu ``mma_codes``): codes below 2^7,
+    so that a code is the low bits of a bf16 (int2, int4), and two or more
+    query rows to fill the MMAs' columns."""
+    return bits != 8 and gq >= 2
+
+
+def mma_form(bits: int, gq: int, d: int, group: int, v_group: int,
+             r: int) -> bool:
+    """Whether a launch takes the tensor-core products (csrc/decode.cu
+    ``mma_form``): its instantiation has them, and its shape is the one
+    their fragments are laid out for (head_dim 128, quant group 64, V group
+    64, at most MMA_RANKS ranks). Every other launch takes the
+    multiply-add products."""
+    return (mma_codes(bits, gq) and d == 128 and group == 64
+            and v_group == 64 and r <= MMA_RANKS)
+
+
+def mma_cols(gq: int) -> int:
+    """Columns of the MMAs' B operand: three bf16 pieces of each query
+    row, rounded up to 8 (csrc/decode.cu ``mma_cols``)."""
+    return 8 * ((3 * -(-gq // 4) + 1) // 2)
 
 
 def splits(n_tokens: int, bh: int, sms: int, blocks_per_sm: float,
@@ -77,7 +110,9 @@ def stage_bytes(d: int, bits: int, r: int, group: int, v_group: int,
                 ko: int, base8: bool) -> int:
     """Bytes of one stage of the decode kernel's ring: everything one tile
     of 128 tokens reads, each piece on 16 bytes (csrc/decode.cu
-    ``stage_layout``)."""
+    ``stage_layout``). One of the K and V code rows is padded by 4 words,
+    V's in the multiply-add form, K's in the tensor-core form: the same
+    bytes either way."""
     nbt, ngv, wd = TILE // group, d // v_group, d * bits // 32
     bel = 1 if base8 else 2
     sc = nbt * r * 4 if base8 else 0
@@ -105,24 +140,33 @@ def decode_smem_bytes(gq: int, d: int, bits: int, r: int, group: int,
                       paged: bool) -> int:
     """Shared memory of one block of the decode kernel: the ring of STAGES
     stages (or, as large, the residual tier's K and V rows that split 0
-    stages there), the prefill's P rows of K and V, the float32 working
-    buffers and, paged, the page lookups (csrc/decode.cu
-    ``split_smem_bytes``, which checks this count)."""
+    stages there), the prefill's P rows of K and V, the MMAs' B operands
+    (tensor-core form), the float32 working buffers and, paged, the page
+    lookups (csrc/decode.cu ``split_smem_bytes``, which checks this
+    count)."""
     nbt, ngv = TILE // group, d // v_group
+    mma = mma_form(bits, gq, d, group, v_group, r)
     # the per-tile sums of the K side and of the V side share their floats;
-    # the outlier terms' buffer only at GQ <= 2 (csrc/decode.cu
-    # ``term_buffer``), the int8 bases' prefill scales only with them
+    # the multiply-add form's q * scale and p * vscale, and its outlier
+    # terms' buffer at GQ <= 2 (csrc/decode.cu ``term_buffer``); the int8
+    # bases' prefill scales only with them
     sums = max(nbt * gq * (1 + r), gq * (ngv + nbt * r))
-    floats = (gq * d + nbt * gq * d + gq * ngv * TILE + gq * TILE + sums
-              + 2 * gq * 4 + 2 * gq * r + (4 * r if base8 else 0)
-              + (nbt * ko * gq if gq <= 2 else 0))
+    floats = (gq * d + gq * TILE + sums + 2 * gq * 4 + 2 * gq * r
+              + (4 * r if base8 else 0))
+    if mma:
+        floats += gq  # the tile's softmax factor per query row
+    else:
+        floats += (nbt * gq * d + gq * ngv * TILE
+                   + (nbt * ko * gq if gq <= 2 else 0))
     if paged:
         floats += 2 * STAGES * nbt
     region = max(STAGES * stage_bytes(d, bits, r, group, v_group, ko, base8),
                  2 * group * d * 2)
     pre = (2 * r * d * (1 if base8 else 2) + 15) // 16 * 16
+    # a chain of 8 k-steps of B per quant block of a tile or per d-group
+    operands = max(nbt, ngv) * 8 * mma_cols(gq) * 32 if mma else 0
     bars = 8 * STAGES  # an mbarrier a stage
-    return region + pre + bars + 4 * floats
+    return region + pre + operands + bars + 4 * floats
 
 
 def check_operands(dev, expect: dict) -> None:
@@ -313,10 +357,17 @@ def decode_attention(q, k_codes, k_scale, k_mn, kpt, kqt, v_codes, v_scale,
          n_split, per, 0, 0, smem),
         n_split)
     decode_attention.launches += 1
+    if mma_form(bits, gq, d, group, v_group, r):
+        mma_products.launches += 1
     return out
 
 
 decode_attention.launches = 0
+
+
+# launches of either decode kernel that took the tensor-core products (a
+# count beside the wrappers' in ``kernels.launch_counts``)
+mma_products = types.SimpleNamespace(launches=0)
 
 
 def fold_window(pad_start, window_lo: torch.Tensor | None, batch: int,
@@ -482,6 +533,8 @@ def decode_attention_paged(lens, pad_start, block_table, q, kpt, k_codes,
          out_pad, n_split, per, maxp, pb, smem),
         n_split)
     decode_attention_paged.launches += 1
+    if mma_form(bits, gq, d, group, v_group, r):
+        mma_products.launches += 1
     return out
 
 

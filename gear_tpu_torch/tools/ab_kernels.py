@@ -13,7 +13,7 @@ timed with that tree's ``chip_smoke.py``: every case of ``phase_decode``
 1,900 tokens and less), every case of ``phase_flash`` (B4) with
 ``scaled_dot_product_attention`` timed beside it in the same process, and
 every case of ``phase_pack`` (B2, B3), and B1 and B4 at the benchmark
-cells' shapes. Per tree one line with the registers
+cells' shapes (and at GQ 2 and 8). Per tree one line with the registers
 and spills (``ptxas -v``) of every kernel instantiation, one with the
 device ms of each case. Give the trees in the order parent, change,
 change, parent, so that drift of the card shows.
@@ -87,6 +87,15 @@ try:   # the rows timed so far are printed even if a phase fails
     timed_case(torch, timer, gen, "cell mixtral rank",
                dict(outliers_per_block=162, bits=2), 2, 8, pad_8k, None, b=16,
                t=8448, n_prefill=8192, n_append=70)
+    # the same rows at GQ 2 and 8 (twice and half the kv heads), for the
+    # decode kernel's choice of products at each GQ
+    for gq, hkv4, hkv8 in ((2, 16, 4), (8, 4, 1)):
+        timed_case(torch, timer, gen, f"cell gear4 at GQ {gq}",
+                   dict(outliers_per_block=162), hkv4, 32, pad_4k, 4096,
+                   b=16, t=4608, n_prefill=4352, n_append=70)
+        timed_case(torch, timer, gen, f"cell mixtral rank at GQ {gq}",
+                   dict(outliers_per_block=162, bits=2), hkv8, 8, pad_8k,
+                   None, b=16, t=8448, n_prefill=8192, n_append=70)
     if hasattr(cs, "paged_case"):
         gen = torch.Generator(device="cuda").manual_seed(5)
         for name, kw, extra in (

@@ -363,6 +363,179 @@ def test_decode_kernel_prefill_region(cuda, name):
     torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-4)
 
 
+def _mma_cache(dev, *, bits, hkv, gq, b=2, t=640, n_prefill=512,
+               n_append=20, seed=3, coarse=False, **kw):
+    """A cache at the tensor-core form's shape (head_dim 128, group 64,
+    rank 2 / prefill rank 4) built by the port's prefill and appends, and
+    float32 queries for it; ``coarse``: a prompt on a grid of 0.5, whose
+    outlier candidates tie."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    spec = TC.CacheSpec(batch=b, num_kv_heads=hkv, head_dim=128, max_len=t,
+                        **{"bits": bits, "group": 64, "rank": 2,
+                           "prefill_rank": 4, **kw})
+    shape = (b, hkv, n_prefill, 128)
+    k = torch.randn(shape, generator=gen, device=dev)
+    v = torch.randn(shape, generator=gen, device=dev)
+    if coarse:
+        k, v = (k * 2).round() / 2, (v * 2).round() / 2
+    cache = TC.prefill(spec, k.bfloat16(), v.bfloat16(), generator=gen)
+    for _ in range(n_append):
+        kn = torch.randn((b, hkv, 1, 128), generator=gen, device=dev)
+        TC.append(spec, cache, kn.bfloat16(), (kn * 0.5).bfloat16(),
+                  generator=gen)
+    q = torch.randn((b, hkv * gq, 1, 128), generator=gen, device=dev)
+    return spec, cache, q
+
+
+def _hold_mma(spec, cache, q, what, pad=None, window=None):
+    """The kernel against the plain ``cache.attend``, at the card tests'
+    tolerance; the launch must take the tensor-core products."""
+    dev = q.device
+    pad_t = None if pad is None else torch.tensor(pad, dtype=torch.int32,
+                                                   device=dev)
+    gq = q.shape[1] // spec.num_kv_heads
+    assert TK.mma_form(spec.bits, gq, spec.head_dim, spec.group,
+                       spec.v_group, spec.r_store)
+    before = kernels.launch_counts()["decode_attention_mma"]
+    got = TK.attend_fused(spec, cache, q, pad_start=pad_t, window=window)
+    assert kernels.launch_counts()["decode_attention_mma"] == before + 1
+    want = TC.attend(spec, cache, q, pad_start=pad_t, window=window)
+    torch.testing.assert_close(got, want, rtol=1e-3, atol=1e-4,
+                               msg=lambda m: f"{what}: {m}")
+
+
+def _set_codes(spec, cache, which, codes):
+    """Overwrite K's or V's codes with ``codes`` [B, H, T, D] (the stored
+    byte-strided words, [B, H, D * bits / 32, T])."""
+    from gear_tpu_torch.core import quant
+
+    words = quant.pack_codes_bytestrided(codes, spec.bits).transpose(-1, -2)
+    getattr(cache, which).copy_(words)
+
+
+MMA_SHAPES = {
+    # name: (bits, kv heads, GQ, batch, max_len, prompt, appended, pad,
+    # window, outliers)
+    "cell_gear4": (4, 8, 4, 16, 4608, 4352, 70,
+                   [52 + 25 * i for i in range(16)], 4096, 162),
+    "cell_mixtral_rank": (2, 2, 4, 16, 8448, 8192, 70,
+                          [42 + 23 * i for i in range(16)], None, 162),
+    "int4_gq2": (4, 4, 2, 2, 640, 512, 20, [0, 70], None, 162),
+    "int2_gq2": (2, 4, 2, 2, 640, 512, 20, None, None, 0),
+    "int4_gq8": (4, 2, 8, 2, 640, 512, 20, None, 300, 162),
+    "int2_gq8": (2, 2, 8, 2, 640, 512, 20, [3, 0], None, 162),
+}
+
+
+@pytest.mark.parametrize("name", list(MMA_SHAPES))
+def test_decode_mma_products_at_their_shapes(cuda, name):
+    """The tensor-core products at the GEAR cells' shapes (70 steps into
+    their windows) and at every (bits, GQ) the selector sends them."""
+    bits, hkv, gq, b, t, n_prefill, n_append, pad, window, ko = \
+        MMA_SHAPES[name]
+    spec, cache, q = _mma_cache(cuda, bits=bits, hkv=hkv, gq=gq, b=b, t=t,
+                                n_prefill=n_prefill, n_append=n_append,
+                                outliers_per_block=ko)
+    _hold_mma(spec, cache, q, name, pad, window)
+
+
+@pytest.mark.parametrize("bits", [2, 4])
+def test_decode_mma_one_hot_codes(cuda, bits):
+    """Codes that are zero but for one channel (K: the contraction axis of
+    the scores; V: the rows of PV) or one token (K: the scores' rows; V: PV's
+    contraction axis), at the largest code: a fragment that takes a word,
+    byte or field from the wrong place fails, by that channel or token."""
+    spec, cache, q = _mma_cache(cuda, bits=bits, hkv=2, gq=4, b=1,
+                                n_prefill=128 * 3, n_append=0)
+    shape = (1, 2, spec.max_len, 128)
+    top = (1 << bits) - 1
+    for which in ("k_codes", "v_codes"):
+        keep = getattr(cache, which).clone()
+        for ch in (0, 1, 2, 3, 4, 5, 17, 31, 32, 63, 64, 66, 95, 127):
+            codes = torch.zeros(shape, dtype=torch.int32, device=cuda)
+            codes[..., ch] = top
+            _set_codes(spec, cache, which, codes)
+            _hold_mma(spec, cache, q, f"{which} channel {ch}")
+        for tok in (0, 1, 2, 3, 4, 7, 8, 9, 15, 16, 31, 63, 64, 65, 127, 128,
+                    255, 300):
+            codes = torch.zeros(shape, dtype=torch.int32, device=cuda)
+            codes[..., tok, :] = top
+            _set_codes(spec, cache, which, codes)
+            _hold_mma(spec, cache, q, f"{which} token {tok}")
+        getattr(cache, which).copy_(keep)
+
+
+@pytest.mark.parametrize("bits", [2, 4])
+@pytest.mark.parametrize("fill", ["zero", "top"])
+def test_decode_mma_codes_at_their_ends(cuda, bits, fill):
+    """Every code 0, or every code 2^bits - 1: the bf16 bias under the
+    codes comes off exactly."""
+    spec, cache, q = _mma_cache(cuda, bits=bits, hkv=2, gq=4,
+                                outliers_per_block=162)
+    value = 0 if fill == "zero" else (1 << bits) - 1
+    codes = torch.full((2, 2, spec.max_len, 128), value, dtype=torch.int32,
+                       device=cuda)
+    for which in ("k_codes", "v_codes"):
+        _set_codes(spec, cache, which, codes)
+    _hold_mma(spec, cache, q, f"codes {fill}")
+
+
+# name: (bits, prompt, appended, residual length by hand or None, kwargs)
+MMA_EDGES = {
+    "resid_0": (4, 640, 0, 0, {}),
+    "resid_1": (2, 640, 0, 1, {}),
+    "resid_63": (4, 640, 0, 63, dict(outliers_per_block=162)),
+    "resid_64": (2, 640, 0, 64, dict(outliers_per_block=162)),
+    "tile_straddles_prefill": (4, 960, 100, None, {}),   # tile 7: 14 in, 15 past
+    "tiles_past_prefill": (2, 900, 190, None, dict(outliers_per_block=162)),
+    "outlier_ties": (4, 900, 190, None, dict(outliers_per_block=162)),
+    "rank_0": (4, 900, 190, None, dict(rank=0, prefill_rank=0)),
+    "int8_bases": (4, 900, 190, None, dict(base_bits=8,
+                                           outliers_per_block=162)),
+}
+
+
+@pytest.mark.parametrize("name", list(MMA_EDGES))
+def test_decode_mma_edges(cuda, name):
+    """The tensor-core products at the residual tier's every length, on
+    tiles inside, across and past the prefill's end (its one P, then each
+    block's own), with outlier ties, rank 0 and int8 bases."""
+    bits, n_prefill, n_append, resid, kw = MMA_EDGES[name]
+    spec, cache, q = _mma_cache(cuda, bits=bits, hkv=4, gq=4, t=1152,
+                                n_prefill=n_prefill, n_append=n_append,
+                                seed=11, coarse=name == "outlier_ties", **kw)
+    if resid is not None:  # a residual tier of this length, by hand
+        gen = torch.Generator(device=cuda).manual_seed(13)
+        cache.k_resid.copy_(torch.randn(cache.k_resid.shape, generator=gen,
+                                        device=cuda).bfloat16())
+        cache.v_resid.copy_(torch.randn(cache.v_resid.shape, generator=gen,
+                                        device=cuda).bfloat16())
+        cache.resid_len = resid
+    _hold_mma(spec, cache, q, name)
+
+
+def test_decode_mma_counter(cuda):
+    """``decode_attention_mma`` counts the launches that take the
+    tensor-core products: one a call at the cells' instantiations (int4
+    and int2 at GQ 4), none at int8 codes, GQ 1 or head_dim 64."""
+    for bits, gq, d, want in ((4, 4, 128, 1), (2, 4, 128, 1), (8, 4, 128, 0),
+                              (4, 1, 128, 0), (4, 2, 64, 0)):
+        gen = torch.Generator(device=cuda).manual_seed(5)
+        spec = TC.CacheSpec(batch=1, num_kv_heads=2, head_dim=d, max_len=256,
+                            bits=bits, group=64)
+        k = torch.randn((1, 2, 200, d), generator=gen, device=cuda)
+        cache = TC.prefill(spec, k.bfloat16(), k.bfloat16(), generator=gen)
+        q = torch.randn((1, 2 * gq, 1, d), generator=gen, device=cuda)
+        before = kernels.launch_counts()
+        got = TK.attend_fused(spec, cache, q)
+        after = kernels.launch_counts()
+        assert after["decode_attention"] == before["decode_attention"] + 1
+        assert (after["decode_attention_mma"]
+                == before["decode_attention_mma"] + want), (bits, gq, d)
+        torch.testing.assert_close(got, TC.attend(spec, cache, q),
+                                   rtol=1e-3, atol=1e-4)
+
+
 @pytest.mark.parametrize("hkv,hq,length,pad,window", [
     (4, 4, 300, None, None), (2, 8, 512, [0, 130], None),
     (4, 4, 131, [130, 5], None), (2, 4, 400, [3, 9], 150),

@@ -118,6 +118,8 @@ def test_decode_stage_holds_the_tile():
     (4, 4, 256, 3),   # Mistral-7B GEAR: no terms' buffer, three an SM
     (4, 4, 0, 3),
     (8, 8, 256, 1),
+    (4, 2, 256, 3),   # a Mixtral-8x7B rank (int2 GEAR): three an SM
+    (8, 4, 256, 2),   # GQ 8 at int4: the tensor-core form, two an SM
 ])
 def test_decode_plan_of_the_main_shapes(gq, bits, ko, bps):
     """How many blocks of the decode kernel an SM holds, which the token
@@ -165,3 +167,51 @@ def test_ptxas_usage_names_every_instantiation():
         "decode_split_kernel<4,1,0,1>": (150, 0, 0),
         "channel_kernel": (40, 0, 0),
     }
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("gq", TK.GQ_SIZES)
+def test_decode_form_of_each_instantiation(bits, gq):
+    """Which products each (bits, GQ) of the decode kernel takes: the
+    tensor-core form at int2 and int4 with two or more query rows, at the
+    shape its fragments are laid out for (head_dim 128, group 64, V group
+    64, at most MMA_RANKS ranks); the multiply-add form otherwise."""
+    want = bits in (2, 4) and gq >= 2
+    assert TK.mma_codes(bits, gq) == want
+    assert TK.mma_form(bits, gq, 128, 64, 64, 4) == want
+    for d, group, v_group, r in ((64, 64, 64, 4), (128, 32, 32, 4),
+                                 (64, 32, 32, 2), (128, 64, 32, 4),
+                                 (128, 64, 64, TK.MMA_RANKS + 1)):
+        assert not TK.mma_form(bits, gq, d, group, v_group, r)
+
+
+@pytest.mark.parametrize("gq,cols", [(2, 16), (4, 16), (8, 24)])
+def test_mma_columns_hold_three_pieces_a_row(gq, cols):
+    """B's columns: a multiple of 8 (the MMA's N), of which a thread owns a
+    quarter; it owns query rows qa + 4 i and needs three bf16 pieces of
+    each."""
+    assert TK.mma_cols(gq) == cols
+    assert cols % 8 == 0
+    assert cols // 4 >= 3 * -(-gq // 4)
+
+
+@pytest.mark.parametrize("gq,bits,paged,smem", [
+    (4, 4, False, 76736),   # mistral7b-gear4-decode-4k
+    (4, 2, False, 60096),   # a rank of mixtral8x7b-gear2-tp4-8k
+    (4, 4, True, 76768),    # the paged form at the same shape
+    (2, 4, False, 74472),
+    (8, 4, False, 85360),
+])
+def test_decode_smem_of_the_tensor_core_form(gq, bits, paged, smem):
+    """The tensor-core form's block (rank 4, 256 stored outliers): the
+    multiply-add form's q * scale and p * vscale buffers, and its outlier
+    terms at GQ <= 2, give way to the MMAs' B operands (a chain of 8
+    k-steps per quant block or d-group) and a float per query row for the
+    tile's softmax factor; the K and V code rows trade their padding, so a
+    stage keeps its bytes. At the two GEAR cells' shapes three blocks still
+    share an SM (the launch bounds hold them to 168 registers)."""
+    assert TK.mma_form(bits, gq, 128, 64, 64, 4)
+    got = TK.decode_smem_bytes(gq, 128, bits, 4, 64, 64, 256, False, paged)
+    assert got == smem
+    assert TK.blocks_per_sm(got) == (3 if gq <= 4 else 2)
+    assert 3 * (got + 1024) <= TK.SM_SMEM or gq == 8
